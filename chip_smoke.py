@@ -1,0 +1,282 @@
+"""Smoke run of the PyTorch port on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--spp N]
+
+Drives the port's point-photon x beam-query path end to end at the
+lampshade example's own parameters, builds the two hand-written CUDA
+kernels from `rpt_tpu_torch/csrc`, shows that the render launched both,
+holds each kernel against its plain PyTorch version on the render's real
+tables, and checks a small render against the checked-in golden image.
+Every phase prints one line; any failure raises and exits non-zero.
+The last two lines are the kernel report and the device report (JSON).
+It imports neither jax nor rpt_tpu, and exits non-zero without a result
+where CUDA is unavailable or the repository is not beside it.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+GOLDEN = os.path.join(ROOT, "tests", "golden", "lampshade_pointbeam_32.npy")
+
+# K-sweep sums up to ~2M FP32 terms per ray in another order than the
+# plain version's chunked matrix product: rtol 1e-3 (atol 1e-6 of the
+# largest value, for rays that pierce nothing).
+SWEEP_RTOL = 1e-3
+# K-knn and brute force compute d^2 with the same rounded operations: the
+# sorted distances must agree on >= 99.9% of rows.
+KNN_ROW_AGREEMENT = 0.999
+
+
+def _time_ms(fn, reps: int) -> float:
+    """Mean milliseconds of ``fn`` on the card (CUDA events, one warm-up)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase_device() -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    nvcc = "nvcc not found"
+    for cand in ("nvcc", "/usr/local/cuda/bin/nvcc"):
+        try:
+            out = subprocess.run([cand, "--version"], capture_output=True, text=True,
+                                 check=True, timeout=60).stdout
+            nvcc = [line for line in out.splitlines() if "release" in line][0].strip()
+            break
+        except (OSError, subprocess.CalledProcessError):
+            continue
+    print(f"[device] {smi} | torch {torch.__version__} (CUDA {torch.version.cuda}) | {nvcc}")
+    return smi
+
+
+def phase_build():
+    from rpt_tpu_torch.ops import _build
+
+    lib = _build.library()
+    usage = [line.strip() for line in lib.log.splitlines() if "registers" in line]
+    print(f"[build] {os.path.relpath(lib.path, ROOT)} in {lib.build_seconds:.2f} s; "
+          f"ptxas: {' | '.join(usage) if usage else 'cached'}")
+
+
+def phase_render(spp: int):
+    sys.path.insert(0, os.path.join(ROOT, "examples"))
+    import torch_volumetric_beamphoton_lampshade as ex
+    from rpt_tpu_torch.accel.knn import knn_query
+    from rpt_tpu_torch.ops.sphere_sweep import sphere_sweep
+
+    r = ex.renderer("cuda", sample=spp, seed=0)
+    sphere_sweep.launches = 0
+    knn_query.launches = 0
+    img = r.photon_point_query_beam_render(ex.photons)
+    launches = {"sphere_sweep": sphere_sweep.launches, "knn_query": knn_query.launches}
+    s, c = r.phase_seconds, r.photon_counts
+    finite = bool(np.isfinite(r._last_buffer.raw()).all())
+    note = "" if spp == ex.sample else f" (spp lowered from {ex.sample} to {spp})"
+    print(f"[render] {r.width_}x{r.height_} {spp} spp{note}, {ex.photons} photons: shoot "
+          f"{s['shoot']:.3f} s, build {s['build']:.3f} s, trace {s['trace']:.3f} s; "
+          f"surface {c['surface']}, volume {c['volume']}, dropped {c['dropped']}; "
+          f"image mean {img.mean():.4f}, finite {finite}; launches {launches}")
+    if not finite or img.shape != (r.height_, r.width_, 3) or img.mean() <= 0:
+        raise RuntimeError("render output is not a finite, non-black image of the right shape")
+    for name, n in launches.items():
+        if n <= 0:
+            raise RuntimeError(f"the render never launched {name}")
+    return r, ex, launches
+
+
+def phase_sweep(r, ex):
+    from rpt_tpu_torch.intersect import closest_hit
+    from rpt_tpu_torch.ops.sphere_sweep import (
+        pack_spheres_transposed, sphere_sweep, sphere_sweep_plain,
+    )
+    from rpt_tpu_torch.renderer import camera_rays
+    from rpt_tpu_torch import sampling
+
+    scene, pmap = r.compiled, r.photon_map
+    medium = scene.media[0]
+    ray = camera_rays(scene, r.camera, r.width_, r.height_,
+                      sampling.fold_in(sampling.key(r.seed_, r.device), 2), 0)
+    hit = closest_hit(scene, scene.tables, ray)
+    ext = float(medium.extinction(ray.origin[0:1]).item())
+    args = (ray.origin.to_array().contiguous(), ray.dir.to_array().contiguous(),
+            torch.where(hit.valid, hit.time, float("inf")), pmap.spheres_t, ext,
+            torch.ones(3, device="cuda"))
+    kw = dict(n_spheres=pmap.n_spheres, phase_const=float(medium.phase_const))
+    out = sphere_sweep(*args, **kw)
+    ref = sphere_sweep_plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    atol = 1e-6 * float(ref.abs().max())
+    ok = bool(torch.allclose(out, ref, rtol=SWEEP_RTOL, atol=atol))
+    ms = _time_ms(lambda: sphere_sweep(*args, **kw), 5)
+    plain_ms = _time_ms(lambda: sphere_sweep_plain(*args, **kw), 1)
+    n, p = args[0].shape[0], pmap.n_spheres
+    print(f"[K-sweep] sample-0 rays {n} x {p} spheres: max abs err {err:.3e} "
+          f"(rtol {SWEEP_RTOL}, atol {atol:.3e}) ok {ok}; kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms; {n * p / (ms * 1e-3) / 1e9:.1f} G pair tests/s")
+
+    # ragged synthetic case: neither N nor P a multiple of a block
+    g = torch.Generator(device="cuda").manual_seed(0)
+    n2, p2 = 1000, 5003
+    o = torch.rand((n2, 3), device="cuda", generator=g) * 100
+    d = torch.nn.functional.normalize(torch.randn((n2, 3), device="cuda", generator=g), dim=1)
+    th = torch.where(torch.rand(n2, device="cuda", generator=g) < 0.5,
+                     torch.rand(n2, device="cuda", generator=g) * 180 + 20,
+                     torch.full((n2,), float("inf"), device="cuda"))
+    sph = pack_spheres_transposed(torch.rand((p2, 3), device="cuda", generator=g) * 100,
+                                  torch.rand(p2, device="cuda", generator=g) * 5 + 5,
+                                  torch.randn((p2, 3), device="cuda", generator=g),
+                                  torch.rand((p2, 3), device="cuda", generator=g))
+    col = torch.full((3,), 0.5, device="cuda")
+    a = sphere_sweep(o, d, th, sph, 1e-3, col, n_spheres=p2, phase_const=kw["phase_const"])
+    b = sphere_sweep_plain(o, d, th, sph, 1e-3, col, n_spheres=p2,
+                           phase_const=kw["phase_const"])
+    torch.cuda.synchronize()
+    err2 = float((a - b).abs().max())
+    ok2 = bool(torch.allclose(a, b, rtol=SWEEP_RTOL, atol=1e-6 * float(b.abs().max())))
+    print(f"[K-sweep] ragged {n2} x {p2}: max abs err {err2:.3e} ok {ok2}")
+    if not (ok and ok2):
+        raise RuntimeError("K-sweep disagrees with its plain version")
+    return {"name": "sphere_sweep", "route": "cuda",
+            "source": "rpt_tpu_torch/csrc/sphere_sweep.cu",
+            "replaces": "rpt_tpu/ops/sphere_sweep.py:111", "max_abs_err": max(err, err2),
+            "ms": ms, "plain_ms": plain_ms}
+
+
+def _knn_compare(grid, q, k):
+    """K-knn against brute force on queries ``q``: the share of rows whose
+    sorted d^2 agree (rtol 1e-6), the share bit-equal, the max abs d^2
+    error, and whether every returned index is a distinct point lying at
+    its returned d^2 (recomputed in the kernel's operation order)."""
+    from rpt_tpu_torch.accel.knn import knn_plain, knn_query
+
+    idx, d2, valid = knn_query(grid, q, k)
+    _, d2p, _ = knn_plain(grid.points, q, k)
+    p = grid.points[idx]
+    dx, dy, dz = (p[..., i] - q[:, None, i] for i in range(3))
+    at = torch.where(valid, dx * dx + dy * dy + dz * dz, float("inf"))
+    tagged = torch.where(valid, idx, -1 - torch.arange(k, device=idx.device))
+    ranked = torch.sort(tagged, dim=1).values
+    idx_ok = bool(torch.isclose(at, d2, rtol=1e-6, atol=0.0).all()
+                  and (ranked[:, 1:] != ranked[:, :-1]).all())
+    same = torch.isclose(d2, d2p, rtol=1e-6, atol=0.0).all(dim=1).float().mean().item()
+    exact = (d2 == d2p).all(dim=1).float().mean().item()
+    fin = torch.isfinite(d2p)
+    err = float((d2 - d2p)[fin].abs().max()) if bool(fin.any()) else 0.0
+    return same, exact, err, idx_ok
+
+
+def phase_knn(r):
+    from rpt_tpu_torch.accel.knn import build_grid, knn_plain, knn_query
+    from rpt_tpu_torch.integrators.photon import RADIUS_K
+    from rpt_tpu_torch.intersect import closest_hit
+    from rpt_tpu_torch.renderer import camera_rays
+    from rpt_tpu_torch import sampling
+
+    scene, pmap = r.compiled, r.photon_map
+    g = torch.Generator(device="cuda").manual_seed(1)
+    surface = pmap.surface_grid
+    volume = build_grid(pmap.spheres_t[0:3, :pmap.n_spheres].T.contiguous())
+    # the camera pass's queries: sample 0's surface gather points, as
+    # surface_estimate forms them (the origin of space, outside the grid,
+    # for a ray that hits nothing)
+    ray = camera_rays(scene, r.camera, r.width_, r.height_,
+                      sampling.fold_in(sampling.key(r.seed_, r.device), 2), 0)
+    hit = closest_hit(scene, scene.tables, ray)
+    pos = torch.where(hit.valid[:, None], ray.at(hit.time).to_array(), 0.0).contiguous()
+    cases = (
+        ("surface cloud, 4096 sampled points", surface,
+         surface.points[torch.randint(0, surface.n, (4096,), device="cuda", generator=g)],
+         r.gather_size_),
+        ("volume cloud, 4096 sampled points", volume,
+         volume.points[torch.randint(0, volume.n, (4096,), device="cuda", generator=g)],
+         RADIUS_K),
+        (f"camera pass, {pos.shape[0]} hit points ({int((~hit.valid).sum())} misses)",
+         surface, pos, r.gather_size_),
+    )
+    worst, err, idx_ok = 1.0, 0.0, True
+    for name, grid, q, k in cases:
+        same, exact, e, ok = _knn_compare(grid, q, k)
+        worst, err, idx_ok = min(worst, same), max(err, e), idx_ok and ok
+        ms = _time_ms(lambda: knn_query(grid, q, k), 5)
+        plain_ms = _time_ms(lambda: knn_plain(grid.points, q, k), 1)
+        print(f"[K-knn] {name} x {grid.n} points, k={k}: rows agreeing {same:.5f} "
+              f"(bit-equal {exact:.5f}), max abs err {e:.3e}, indices consistent {ok}; "
+              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    if worst < KNN_ROW_AGREEMENT or not idx_ok:
+        raise RuntimeError(f"K-knn agrees with brute force on only {worst:.5f} of rows, "
+                           f"indices consistent {idx_ok}")
+    # the reported times are the camera pass's (the last case)
+    return {"name": "knn_query", "route": "cuda", "source": "rpt_tpu_torch/csrc/knn.cu",
+            "replaces": "rpt_tpu/accel/grid.py:605", "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms}
+
+
+def phase_golden(ex):
+    """tests/test_golden.py:78-89,116-118 settings; `_check_img`'s mean
+    tolerance 0.02 and p99 tolerance 0.2 of the golden's mean, the latter
+    floored at one u8 level: the golden's mean is ~5 levels, so 0.2 of it
+    is under one quantization step, and the JAX package that made the
+    golden truncates k-NN where the port is exact (tests/test_torch_photon.py
+    says more; PERF.md lists the floor as an open deviation). The line also
+    prints p99 / mean for the unfloored limit."""
+    r = ex.renderer("cuda", size=32, bounce=6, sample=2, photons=4000, seed=42)
+    img = r.photon_point_query_beam_render(4000).astype(np.float64)
+    ref = np.load(GOLDEN).astype(np.float64)
+    diff = np.abs(img - ref)
+    scale = max(ref.mean(), 1e-6)
+    mean_rel = diff.mean() / scale
+    p99 = np.percentile(diff, 99)
+    ok = mean_rel < 0.02 and p99 <= max(0.2 * scale, 1.0)
+    print(f"[golden] 32x32 4000 photons 2 spp seed 42: mean |diff|/mean {mean_rel:.4f} "
+          f"(< 0.02), p99 |diff| {p99:.1f} levels (<= max(0.2*mean, 1) = "
+          f"{max(0.2 * scale, 1.0):.3f}; p99/mean {p99 / scale:.4f}, unfloored limit 0.2), "
+          f"values differing {int((diff > 0).sum())} of {diff.size}; ok {ok}")
+    if not ok:
+        raise RuntimeError("golden check failed")
+
+
+def main():
+    parser = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU")
+    parser.add_argument("--spp", type=int, default=50,
+                        help="camera samples of the full-size render (the example's 50)")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: torch.cuda.is_available() is False; nothing was run")
+    sys.path.insert(0, ROOT)
+
+    t0 = time.perf_counter()
+    smi = phase_device()
+    phase_build()
+    r, ex, launches = phase_render(args.spp)
+    kernels = [phase_sweep(r, ex), phase_knn(r)]
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+    phase_golden(ex)
+    print(f"[done] {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

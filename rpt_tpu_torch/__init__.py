@@ -1,0 +1,44 @@
+"""rpt_tpu_torch — the PyTorch/CUDA port of rpt_tpu for NVIDIA Hopper.
+
+A second package beside the JAX reference `rpt_tpu`: the same scene API
+(Scene/Object/Material/Medium/Camera/Renderer), torch tensors on an
+explicit device, and hand-written CUDA kernels for the hot loops
+(`rpt_tpu_torch/csrc`). It imports neither jax nor rpt_tpu.
+
+Ported so far: the point-photon x beam-query photon path
+(``Renderer.photon_point_query_beam_render``) for scenes whose meshes fit
+the dense triangle test.
+"""
+
+from .buffer import Buffer, Filter  # noqa: F401
+from .camera import Camera  # noqa: F401
+from .color import color_bytes, hex_color  # noqa: F401
+from .environment import ColorEnvironment, Environment  # noqa: F401
+from .lights import (  # noqa: F401
+    AmbientLight,
+    DirectionalLight,
+    Light,
+    ObjectLight,
+    PointLight,
+)
+from .materials import Material  # noqa: F401
+from .medium import Medium  # noqa: F401
+from .renderer import Renderer  # noqa: F401
+from .scene import CompiledScene, Object, Scene, compile_scene  # noqa: F401
+from .shapes import (  # noqa: F401
+    Cube,
+    Mesh,
+    MonomialSurface,
+    Plane,
+    ShapeGroup,
+    Sphere,
+    Transformed,
+    cube,
+    monomial_surface,
+    plane,
+    polygon,
+    sphere,
+)
+from .vec import Vec3  # noqa: F401
+
+__version__ = "0.1.0"

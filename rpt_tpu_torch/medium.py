@@ -1,0 +1,106 @@
+"""Participating media — port of `rpt_tpu/medium.py`
+(`rpt/src/medium.rs`).
+
+Fields are callables ``Vec3 -> tensor`` over position. Distance sampling
+and transmittance follow the reference exactly, including evaluating
+extinction at the ray origin only (medium.rs:126-130). The two isotropic
+presets are ported; Henyey-Greenstein is not yet.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+
+from . import sampling
+from .color import hex_color
+from .ray import Ray
+from .vec import Vec3, where
+
+
+@dataclass(frozen=True)
+class Medium:
+    """Fields are callables over position (medium.rs:9-27); ``phase`` takes
+    (wo, wi) and ``sample_ph`` takes (wo, keys) -> (wi, pdf)."""
+
+    absorption: Callable
+    scattering: Callable
+    emission: Callable
+    color: Callable
+    phase: Callable
+    sample_ph: Callable
+    #: set when `phase` is a direction-independent constant (isotropic
+    #: presets) — the sphere sweep kernel folds it into one scale
+    phase_const: float | None = None
+
+    def extinction(self, pos: Vec3):
+        """sigma_t = sigma_a + sigma_s (medium.rs:56-60)."""
+        return self.absorption(pos) + self.scattering(pos)
+
+    def transmittence(self, ray: Ray, t_max):
+        """Beer-Lambert using extinction at the ray origin (medium.rs:126-130).
+        (Spelling kept from the reference.)"""
+        return torch.exp(-self.extinction(ray.origin) * t_max)
+
+    def sample_d(self, ray: Ray, keys):
+        """Exponential free-flight sampling; returns (dist, pdf, cdf)
+        (medium.rs:133-146)."""
+        u = sampling.uniform(sampling.fold(keys, 0x5D), 0.0, 1.0)
+        ext = self.extinction(ray.origin)
+        dist = -torch.log(torch.clamp(u, min=1e-38)) / ext
+        transmittence = torch.exp(-ext * dist)
+        return dist, ext * transmittence, 1.0 - transmittence
+
+    # presets -------------------------------------------------------------
+    @staticmethod
+    def homogeneous_isotropic(absorption: float, scattering: float) -> "Medium":
+        """Uniform tan fog, isotropic phase (medium.rs:80-96); ``sample_ph``
+        draws the exact uniform sphere its 1/(4 pi) pdf describes."""
+        tan = hex_color(0xD2B48C)
+
+        def sample_ph(wo: Vec3, keys):
+            r1, r2 = sampling.uniform2(sampling.fold(keys, 0x9A))
+            return sampling.uniform_sphere(r1, r2), torch.full_like(r1, sampling.INV_4PI)
+
+        return Medium(
+            absorption=lambda p: torch.full_like(p.x, absorption),
+            scattering=lambda p: torch.full_like(p.x, scattering),
+            emission=lambda p: torch.zeros_like(p.x),
+            color=lambda p: _const(tan, p),
+            phase=lambda wo, wi: torch.full_like(wo.x, sampling.INV_4PI),
+            sample_ph=sample_ph,
+            phase_const=sampling.INV_4PI,
+        )
+
+    @staticmethod
+    def colored_glowing_fog(absorption: float, scattering: float) -> "Medium":
+        """Emissive two-color fog (medium.rs:99-121). Its phase constant is
+        the reference's ``1/4 * pi`` (= pi/4, medium.rs:111), kept."""
+        red, blue = hex_color(0xFF0000), hex_color(0x0000FF)
+        phase_const = 0.25 * math.pi  # sic, medium.rs:111
+
+        def color(p: Vec3) -> Vec3:
+            return where(p.y > 250.0, _const(red, p), _const(blue, p))
+
+        def sample_ph(wo: Vec3, keys):
+            r1, r2 = sampling.uniform2(sampling.fold(keys, 0x9A))
+            return sampling.uniform_sphere(r1, r2), torch.full_like(r1, phase_const)
+
+        return Medium(
+            absorption=lambda p: torch.full_like(p.x, absorption),
+            scattering=lambda p: torch.full_like(p.x, scattering),
+            emission=lambda p: torch.full_like(p.x, 10.0),
+            color=color,
+            phase=lambda wo, wi: torch.full_like(wo.x, phase_const),
+            sample_ph=sample_ph,
+            phase_const=phase_const,
+        )
+
+
+def _const(c: Vec3, p: Vec3) -> Vec3:
+    """A host constant color broadcast to the shape and device of ``p``."""
+    return Vec3(torch.full_like(p.x, float(c.x)), torch.full_like(p.x, float(c.y)),
+                torch.full_like(p.x, float(c.z)))

@@ -1,0 +1,132 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Every ``rpt_tpu_torch/csrc/*.cu`` file is compiled by ``nvcc`` into one
+shared library with a plain C interface (no PyTorch headers, so the build
+takes seconds), for Hopper only (``sm_90a``), into
+``rpt_tpu_torch/_build/`` at first use, and loaded with ctypes. The file
+name carries a hash of the sources and flags, so an edited kernel is
+rebuilt and a stale library is never loaded.
+
+`compile_and_load` is the one compile-and-load path of the package: the
+native SAH BVH builder (`accel/bvh.py`) goes through it with g++.
+
+Each C entry point launches on the stream it is given, checks
+``cudaGetLastError()`` right after every launch and returns the first
+non-zero code; `check` turns that into an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(PKG_DIR, "_build")
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+# C signatures of the entry points (pointers and the stream as void*)
+_SIGNATURES = {
+    # ray_o, ray_d, hit_t, n, spheres_t, p, p_used, per_split, splits,
+    # ext, scale, med_color, partial, out, stream
+    "rpt_sphere_sweep": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _F, _F, _P, _P, _P, _P],
+    # queries, nq, points, starts, nx, ny, nz, ox, oy, oz, h, inv_h, k,
+    # out_idx, out_d2, stream
+    "rpt_knn_grid": [_P, _I, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _I, _P, _P, _P],
+}
+
+
+class KernelLibrary:
+    """The loaded library, its path, its build time and the compiler's
+    report (``-Xptxas -v``: registers, shared memory and spills per
+    kernel)."""
+
+    def __init__(self, lib, path: str, build_seconds: float, log: str):
+        self.lib = lib
+        self.path = path
+        self.build_seconds = build_seconds
+        self.log = log
+
+
+_LIBRARY: KernelLibrary | None = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
+
+
+def compile_and_load(stem: str, sources: list[str], command: list[str],
+                     signatures: dict) -> tuple:
+    """Compile ``sources`` with ``command`` (the compiler and its flags)
+    into ``_build/<stem>_<hash>.so`` unless that file exists, load it with
+    ctypes and set each entry point's ``(argtypes, restype)`` from
+    ``signatures``. The hash covers the flags and the sources, so an
+    edited source is rebuilt and a stale library never loaded. A compiler
+    failure raises. Returns ``(lib, path, build_seconds, compiler_log)``."""
+    digest = hashlib.sha1(" ".join(command[1:]).encode())
+    for src in sources:
+        with open(src, "rb") as f:
+            digest.update(f.read())
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    path = os.path.join(BUILD_DIR, f"{stem}_{digest.hexdigest()[:12]}.so")
+    log = ""
+    t0 = time.perf_counter()
+    if not os.path.exists(path):
+        tmp = f"{path}.{os.getpid()}.tmp"
+        proc = subprocess.run([*command, "-o", tmp, *sources], capture_output=True, text=True,
+                              timeout=900)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"{command[0]} failed ({proc.returncode}):\n{log}")
+        os.replace(tmp, path)
+    build_seconds = time.perf_counter() - t0
+    lib = ctypes.CDLL(path)
+    for name, (argtypes, restype) in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return lib, path, build_seconds, log
+
+
+def library() -> KernelLibrary:
+    """Build (once per process, and only when the sources changed) and
+    load the kernel library."""
+    global _LIBRARY
+    if _LIBRARY is None:
+        sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+        signatures = {name: (args, ctypes.c_int) for name, args in _SIGNATURES.items()}
+        _LIBRARY = KernelLibrary(*compile_and_load("rpt_kernels", sources,
+                                                   [_nvcc(), *NVCC_FLAGS], signatures))
+    return _LIBRARY
+
+
+def check(code: int, name: str) -> None:
+    """Raise on a non-zero CUDA status returned by an entry point."""
+    if code != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {code}")
+
+
+def stream_of(tensor) -> int:
+    """The raw handle of PyTorch's current stream on the tensor's device."""
+    import torch
+
+    return torch.cuda.current_stream(tensor.device).cuda_stream

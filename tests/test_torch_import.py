@@ -1,0 +1,67 @@
+"""The port stands alone: every `rpt_tpu_torch` module imports without
+jax or rpt_tpu, and a CUDA device is never silently replaced by the CPU."""
+
+import os
+import pkgutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import rpt_tpu_torch as tr
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+
+
+def _modules():
+    names = ["rpt_tpu_torch"]
+    for info in pkgutil.walk_packages(tr.__path__, "rpt_tpu_torch."):
+        names.append(info.name)
+    return names
+
+
+def test_modules_import_without_jax():
+    names = _modules()
+    assert {"rpt_tpu_torch.integrators.photon", "rpt_tpu_torch.ops.sphere_sweep",
+            "rpt_tpu_torch.accel.knn", "rpt_tpu_torch.renderer"} <= set(names)
+    code = (
+        "import importlib, sys\n"
+        f"for name in {names!r}:\n"
+        "    importlib.import_module(name)\n"
+        "import torch_volumetric_beamphoton_lampshade\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'rpt_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok', len(sys.modules))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.abspath(ROOT), os.path.abspath(os.path.join(ROOT, "examples"))]))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.startswith("ok")
+
+
+def test_cuda_device_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    scene = tr.Scene()
+    scene.add(tr.Object(tr.sphere()))
+    with pytest.raises(RuntimeError, match="cuda"):
+        tr.Renderer(scene, tr.Camera(), device="cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        tr.compile_scene(scene, "cuda")
+    # the CPU is an explicit choice, and the renderer records it
+    assert tr.Renderer(scene, tr.Camera(), device="cpu").device.type == "cpu"
+
+
+def test_path_tracing_is_not_ported_yet():
+    scene = tr.Scene()
+    scene.add(tr.Object(tr.sphere()))
+    r = tr.Renderer(scene, tr.Camera()).width(8).height(8)
+    with pytest.raises(NotImplementedError):
+        r.render()
+    with pytest.raises(NotImplementedError):
+        r.photon_render(100, "photon_map")
+    assert np.isfinite(r.scene.compile("cpu").t_min)

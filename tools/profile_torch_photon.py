@@ -1,0 +1,99 @@
+"""Where the time of the port's point-beam photon render goes.
+
+    python3 tools/profile_torch_photon.py [--spp 5] [--photons 1000000]
+                                          [--size 128] [--device cuda]
+
+Runs the three phases of `examples/torch_volumetric_beamphoton_lampshade.py`
+(shoot, map build, camera pass) one after the other under
+`torch.profiler`, and prints for each phase its wall time, the time the
+device was busy (the union of its kernels' intervals on the device
+timeline), that share of the wall, the number of kernels launched, and
+the kernels that took the most device time. Imports neither jax nor
+rpt_tpu. The first phase run builds the CUDA kernels if they are not
+built yet, so the kernels are built before profiling starts.
+"""
+
+import argparse
+import collections
+import os
+import sys
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path[:0] = [ROOT, os.path.join(ROOT, "examples")]
+
+import torch_volumetric_beamphoton_lampshade as ex  # noqa: E402
+from rpt_tpu_torch import sampling  # noqa: E402
+from rpt_tpu_torch.integrators import photon as ph  # noqa: E402
+from rpt_tpu_torch.renderer import _photon_pass  # noqa: E402
+
+
+def _busy_ms(intervals) -> float:
+    """Length of the union of (start, end) intervals, in ms (us in)."""
+    busy, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if s > end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    return busy / 1e3
+
+
+def _profiled(name, fn, device):
+    """Run ``fn`` once under the profiler; print the phase's line and its
+    top kernels; return ``fn``'s result."""
+    # device activity only: host-side op events would cost minutes to
+    # collect over the shoot's ~10^6 launches
+    acts = [ProfilerActivity.CUDA] if device.type == "cuda" else [ProfilerActivity.CPU]
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = _busy_ms((e.time_range.start, e.time_range.end) for e in kernels)
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in kernels:
+        by_name[e.name][0] += (e.time_range.end - e.time_range.start) / 1e3
+        by_name[e.name][1] += 1
+    print(f"== {name}: wall {wall:.1f} ms, device busy {busy:.1f} ms "
+          f"({100.0 * busy / wall:.1f}%), kernels launched {len(kernels)}")
+    for kname, (ms, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"   {ms:10.1f} ms {count:8d}x  {kname[:90]}")
+    return out
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--device", default="cuda")
+    parser.add_argument("--size", type=int, default=ex.size)
+    parser.add_argument("--photons", type=int, default=ex.photons)
+    parser.add_argument("--spp", type=int, default=5)
+    args = parser.parse_args()
+
+    r = ex.renderer(args.device, size=args.size, sample=args.spp, photons=args.photons)
+    scene, dev = r.compiled, r.device
+    if dev.type == "cuda":
+        from rpt_tpu_torch.ops import _build
+
+        _build.library()
+    key = sampling.key(r.seed_, dev)
+    print(f"profile: lampshade {args.size}^2, {args.photons} photons, {args.spp} spp on "
+          f"{torch.cuda.get_device_name(dev) if dev.type == 'cuda' else 'cpu'}")
+    photons = _profiled("shoot", lambda: ph.shoot_photons_device(
+        scene, scene.tables, sampling.fold_in(key, 1), args.photons, r.watts_), dev)
+    pmap = _profiled("build", lambda: ph.build_photon_map(
+        scene, scene.tables, photons.surface, photons.volume, ph.POINT_BEAM, r.gather_size_), dev)
+    _profiled(f"trace {args.spp} spp", lambda: _photon_pass(
+        scene, r.camera, r.width_, r.height_, pmap, sampling.fold_in(key, 2), args.spp,
+        r.gather_size_, True), dev)
+
+
+if __name__ == "__main__":
+    main()
