@@ -5,9 +5,9 @@ A second package beside the JAX reference `rpt_tpu`: the same scene API
 explicit device, and hand-written CUDA kernels for the hot loops
 (`rpt_tpu_torch/csrc`). It imports neither jax nor rpt_tpu.
 
-Ported so far: the point-photon x beam-query photon path
-(``Renderer.photon_point_query_beam_render``) for scenes whose meshes fit
-the dense triangle test.
+Ported so far: path tracing of scenes without media (``Renderer.render``,
+meshes of any size through the BVH kernels K1/K2) and the point-photon x
+beam-query photon path (``Renderer.photon_point_query_beam_render``).
 """
 
 from .buffer import Buffer, Filter  # noqa: F401

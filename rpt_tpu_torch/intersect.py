@@ -9,9 +9,11 @@ per-type batches.
 
 Triangles: meshes of at most ``DENSE_TRI_ROWS`` packed leaf rows are
 tested densely (every row broadcast against the wavefront), as the JAX
-package does (`dense_tri_hit`). Bigger meshes need the BVH traversal
-kernels (closest hit K1, any hit K2), which are not ported yet: they
-raise ``NotImplementedError``.
+package does (`dense_tri_hit`). Bigger meshes go through the BVH
+traversal wrappers of `rpt_tpu_torch.ops.bvh_traverse`: the hand-written
+kernels (closest hit K1, any hit K2) on a CUDA tensor, and `_traverse`,
+the plain ordered short-stack traversal that is their spec, on a CPU
+tensor.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from dataclasses import dataclass
 import torch
 
 from .dtypes import DTYPE, EPS, INF
+from .ops import bvh_traverse as kernels
 from .ray import Hit, Ray, closer
 from .vec import Affine, Mat3, Vec3, where
 
@@ -290,10 +293,11 @@ def _origin_on_plane(num, pn, v1, o):
 
 def _leaf_rows_test(leaf, count, ray: Ray, t_min, time, tri, bu, bv, bw):
     """Test the 8 triangle slots of (m, LEAF_ROW) rows (m = 1 broadcasts
-    one row against every ray), vectorized across the slot axis.
-    Same algebra as mesh.rs:50-83 with e1 = v2-v1, e2 = v3-v1; the best
-    slot per lane is picked with a one-hot reduction, ties to the lowest
-    slot."""
+    one row against every ray), vectorized across the slot axis; ``count``
+    (an int, or an (n,) tensor) bounds the slots tested. Same algebra as
+    mesh.rs:50-83 with e1 = v2-v1, e2 = v3-v1; the best slot per lane is
+    the first minimum (``torch.min`` returns its index), so ties go to the
+    lowest slot."""
     leaf3 = leaf.reshape(leaf.shape[0], 10, leaf.shape[1] // 10)
 
     def vec(c0):
@@ -310,6 +314,8 @@ def _leaf_rows_test(leaf, count, ray: Ray, t_min, time, tri, bu, bv, bw):
     num = pn.dot(v1 - o)
     t = num / cosine
     slot_ids = torch.arange(t.shape[1], device=t.device)[None, :]
+    if isinstance(count, torch.Tensor):
+        count = count[:, None]
     ok = (
         (torch.abs(cosine) >= 1e-8)
         & ~_origin_on_plane(num, pn, v1, o)
@@ -332,12 +338,11 @@ def _leaf_rows_test(leaf, count, ray: Ray, t_min, time, tri, bu, bv, bw):
     ok = ok & (u >= 0.0) & (v >= 0.0) & (w >= 0.0)
 
     t_masked = torch.where(ok, t, INF)
-    best = torch.min(t_masked, dim=1).values
-    sel = t_masked == best[:, None]
-    sel = sel & (torch.cumsum(sel.to(torch.int32), dim=1) == 1)
+    best, slot = torch.min(t_masked, dim=1)
+    slot = slot[:, None]
 
     def pick(x):
-        return torch.sum(torch.where(sel, x, torch.zeros((), dtype=x.dtype, device=x.device)), dim=1)
+        return x.expand(t_masked.shape).gather(1, slot)[:, 0]
 
     better = best < time
     return (
@@ -380,14 +385,159 @@ def _finish_hit(bvh: BVHTables, best: Hit, time, tri, u, v, w) -> Hit:
     )
 
 
-def _tri_hit(bvh: BVHTables, ray: Ray, t_min, best: Hit) -> Hit:
-    if bvh.leaves.shape[0] > DENSE_TRI_ROWS:
-        raise NotImplementedError(
-            f"mesh with {bvh.leaves.shape[0]} leaf rows: meshes above "
-            f"{DENSE_TRI_ROWS} rows need the BVH traversal kernels (closest hit K1, "
-            "any hit K2), which land with the trace_surface slice of the port"
-        )
-    return dense_tri_hit(bvh, ray, t_min, best)
+# ---------------------------------------------------------------------------
+# BVH traversal: the plain version of kernels K1 and K2
+
+
+def _leaf_intersect(leaves, do_leaf, leaf_idx, count, ray: Ray, t_min, time, tri, bu, bv, bw):
+    """Test the leaf row ``leaf_idx`` of the lanes where ``do_leaf``
+    (`rpt_tpu/intersect.py:370`). Only those lanes are gathered and
+    tested; the others keep their state, as the JAX package's masked test
+    leaves it."""
+    lanes = torch.nonzero(do_leaf).squeeze(1)
+    if lanes.numel() == 0:
+        return time, tri, bu, bv, bw
+    sub = Ray(ray.origin[lanes], ray.dir[lanes])
+    out = _leaf_rows_test(leaves[leaf_idx[lanes]], count[lanes], sub, t_min, time[lanes],
+                          tri[lanes], bu[lanes], bv[lanes], bw[lanes])
+    res = []
+    for full, part in zip((time, tri, bu, bv, bw), out):
+        full = full.clone()
+        full[lanes] = part
+        res.append(full)
+    return tuple(res)
+
+
+def _traverse_step(state, ray: Ray, o6, inv6, limit, nodes, leaves, t_min, any_hit: bool):
+    """One step of the ordered short-stack traversal (`rpt_tpu/intersect.py:
+    569-646`): fetch the node row of ``cur`` (both children's boxes), test
+    both children, test their leaves (left, then right), descend into the
+    nearer internal child and push the farther one; pop when neither is
+    entered. With ``any_hit`` a lane retires after the step in which it
+    finds a hit before ``limit``."""
+    cur, sp, stack, time, tri, bu, bv, bw = state
+    n = cur.shape[0]
+    active = cur >= 0
+    row = nodes[torch.clamp(cur, min=0)]
+
+    t1 = (row[:, 0:6] - o6) * inv6
+    t2 = (row[:, 6:12] - o6) * inv6
+    lo = torch.minimum(t1, t2)
+    hi = torch.maximum(t1, t2)
+    # an origin on a slab plane with a zero direction component gives
+    # 0 * inf = NaN: that axis does not constrain
+    lo = torch.where(torch.isnan(lo), -INF, lo)
+    hi = torch.where(torch.isnan(hi), INF, hi)
+    enter = lo.reshape(n, 2, 3).amax(-1)
+    exit_ = hi.reshape(n, 2, 3).amin(-1)
+
+    pm = row[:, 12:16].to(torch.int64)  # [Lptr, Rptr, Lmeta, Rmeta], exact small floats
+    ptr, meta = pm[:, 0:2], pm[:, 2:4]
+    cutoff = torch.minimum(time, limit)
+    hit2 = ((enter <= exit_) & (exit_ >= t_min) & (enter <= cutoff[:, None]) & (meta >= 0)
+            & active[:, None])
+    l_hit, r_hit = hit2[:, 0], hit2[:, 1]
+    lptr, rptr = ptr[:, 0], ptr[:, 1]
+    lmeta, rmeta = meta[:, 0], meta[:, 1]
+
+    time, tri, bu, bv, bw = _leaf_intersect(leaves, l_hit & (lmeta > 0), lptr, lmeta, ray,
+                                            t_min, time, tri, bu, bv, bw)
+    time, tri, bu, bv, bw = _leaf_intersect(leaves, r_hit & (rmeta > 0), rptr, rmeta, ray,
+                                            t_min, time, tri, bu, bv, bw)
+
+    want_l = l_hit & (lmeta == 0)
+    want_r = r_hit & (rmeta == 0)
+    both = want_l & want_r
+    l_near = enter[:, 0] <= enter[:, 1]
+    first = torch.where(want_l & (~want_r | l_near), lptr, rptr)
+    second = torch.where(l_near, rptr, lptr)
+
+    # the stack is sized by the tree's exact depth bound (pack_bvh), so a
+    # push never finds it full; the guard only keeps the step well defined
+    depth = stack.shape[1]
+    rows = torch.arange(n, device=cur.device)
+    can_push = both & (sp < depth)
+    stack[rows[can_push], sp[can_push]] = second[can_push]
+    sp_after = sp + can_push.to(sp.dtype)
+    descend = want_l | want_r
+    do_pop = active & ~descend
+    popped = stack[rows, torch.clamp(sp_after - 1, 0, depth - 1)]
+    pop_ok = (sp_after > 0) & (sp_after <= depth)
+    minus1 = torch.full_like(cur, -1)
+    new_cur = torch.where(~active, cur,
+                          torch.where(descend, first, torch.where(pop_ok, popped, minus1)))
+    new_sp = torch.where(do_pop, torch.clamp(sp_after - 1, min=0), sp_after)
+    if any_hit:
+        new_cur = torch.where(time < limit, minus1, new_cur)
+    return new_cur, new_sp, stack, time, tri, bu, bv, bw
+
+
+def _traverse(bvh: BVHTables, ray: Ray, t_min, limit, best_time, any_hit: bool, active=None):
+    """Ordered short-stack traversal over the pair-packed tables
+    (`rpt_tpu/intersect.py:457`), the plain version of kernels K1 and K2:
+    ``while any(cur >= 0)`` step the live lanes. Returns ``(time, tri, u,
+    v, w)``: the nearest triangle in [t_min, min(best_time, limit)), or
+    ``best_time`` and tri -1 where there is none. Lanes whose ``limit``
+    admits no hit (``limit <= t_min``, e.g. -1) or that ``active`` masks
+    off never enter. The JAX package's staged argsort compaction
+    (``COMPACT_STAGES``) is TPU scheduling and is left out: finished lanes
+    stay in the loop, inactive."""
+    n = ray.origin.x.shape[0]
+    dev = ray.origin.x.device
+    limit = torch.as_tensor(limit, dtype=DTYPE, device=dev).expand(n)
+    out = [best_time.clone(), torch.full((n,), -1, dtype=torch.int32, device=dev),
+           torch.zeros(n, dtype=DTYPE, device=dev), torch.zeros(n, dtype=DTYPE, device=dev),
+           torch.zeros(n, dtype=DTYPE, device=dev)]
+    live0 = limit > t_min
+    if active is not None:
+        live0 = live0 & active
+    lanes = torch.nonzero(live0).squeeze(1)
+    m = lanes.numel()
+    if m == 0:
+        return tuple(out)
+    sub = Ray(ray.origin[lanes], ray.dir[lanes])
+    o6 = torch.cat([sub.origin.to_array()] * 2, dim=1)
+    inv6 = torch.cat([(1.0 / sub.dir.to_array())] * 2, dim=1)
+    sub_limit = limit[lanes]
+    state = [torch.zeros(m, dtype=torch.int64, device=dev),
+             torch.zeros(m, dtype=torch.int64, device=dev),
+             torch.zeros((m, bvh.stack_depth), dtype=torch.int64, device=dev),
+             best_time[lanes], out[1][lanes], out[2][lanes], out[3][lanes], out[4][lanes]]
+    while bool((state[0] >= 0).any()):
+        state = _traverse_step(state, sub, o6, inv6, sub_limit, bvh.nodes, bvh.leaves,
+                               t_min, any_hit)
+    for full, part in zip(out, state[3:]):
+        full[lanes] = part
+    return tuple(out)
+
+
+def bvh_closest_hit(bvh: BVHTables, ray: Ray, t_min, best: Hit) -> Hit:
+    """Closest triangle hit closer than ``best`` (`rpt_tpu/intersect.py:
+    699`, without the TPU's tiled and deferred engines): ``dense_tri_hit``
+    for tiny meshes, else the traversal (K1 on a CUDA tensor, `_traverse`
+    on a CPU tensor), then the shading attributes of the winner."""
+    if bvh.leaves.shape[0] <= DENSE_TRI_ROWS:
+        return dense_tri_hit(bvh, ray, t_min, best)
+    time, tri, u, v, w = kernels.bvh_closest_hit(
+        bvh, ray.origin.to_array().contiguous(), ray.dir.to_array().contiguous(), t_min,
+        best.time.contiguous())
+    return _finish_hit(bvh, best, time, tri, u, v, w)
+
+
+def bvh_any_hit(bvh: BVHTables, ray: Ray, t_min, limit, skip=None) -> torch.Tensor:
+    """True where some triangle lies at t in [t_min, limit)
+    (`rpt_tpu/intersect.py:767`): the early-exit occlusion query (K2 on a
+    CUDA tensor, `_traverse(any_hit=True)` on a CPU tensor). Lanes in
+    ``skip`` are already known occluded: the traversal leaves them out
+    (their result is False), the dense test does not."""
+    n = ray.origin.x.shape[0]
+    dev = ray.origin.x.device
+    if bvh.leaves.shape[0] <= DENSE_TRI_ROWS:
+        return dense_tri_hit(bvh, ray, t_min, Hit.none((n,), dev)).time < limit
+    limit = torch.as_tensor(limit, dtype=DTYPE, device=dev).expand(n).contiguous()
+    return kernels.bvh_any_hit(bvh, ray.origin.to_array().contiguous(),
+                               ray.dir.to_array().contiguous(), t_min, limit,
+                               None if skip is None else ~skip)
 
 
 # ---------------------------------------------------------------------------
@@ -415,18 +565,25 @@ def closest_hit(scene, tables, ray: Ray, t_min=None) -> Hit:
         t_min = scene.t_min
     best = _prim_best(scene, tables, ray, t_min)
     if scene.n_tris:
-        best = _tri_hit(tables["bvh"], ray, t_min, best)
+        best = bvh_closest_hit(tables["bvh"], ray, t_min, best)
     return best
+
+
+def prim_occluded(scene, tables, ray: Ray, limit, t_min=None) -> torch.Tensor:
+    """Occlusion by the analytic primitives only; the mesh is not tested
+    (`rpt_tpu/intersect.py:846`)."""
+    if t_min is None:
+        t_min = scene.t_min
+    return _prim_best(scene, tables, ray, t_min).time < limit
 
 
 def occluded(scene, tables, ray: Ray, limit, t_min=None) -> torch.Tensor:
     """True where any geometry lies at t in [t_min, limit) along the ray —
-    the shadow query (lanes with limit -1 are never occluded)."""
+    the shadow query (lanes with limit -1 are never occluded). Lanes an
+    analytic primitive already occludes skip the mesh traversal."""
     if t_min is None:
         t_min = scene.t_min
-    occ = _prim_best(scene, tables, ray, t_min).time < limit
+    occ = prim_occluded(scene, tables, ray, limit, t_min)
     if scene.n_tris:
-        n = ray.origin.x.shape
-        none = Hit.none(n, ray.origin.x.device)
-        occ = occ | (_tri_hit(tables["bvh"], ray, t_min, none).time < limit)
+        occ = occ | bvh_any_hit(tables["bvh"], ray, t_min, limit, skip=occ)
     return occ

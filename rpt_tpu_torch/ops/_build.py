@@ -1,11 +1,11 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every ``rpt_tpu_torch/csrc/*.cu`` file is compiled by ``nvcc`` into one
-shared library with a plain C interface (no PyTorch headers, so the build
-takes seconds), for Hopper only (``sm_90a``), into
-``rpt_tpu_torch/_build/`` at first use, and loaded with ctypes. The file
-name carries a hash of the sources and flags, so an edited kernel is
-rebuilt and a stale library is never loaded.
+Every ``rpt_tpu_torch/csrc/*.cu`` file is compiled by its own ``nvcc``
+(all started together) into a shared library with a plain C interface (no
+PyTorch headers, so a build takes seconds), for Hopper only (``sm_90a``),
+into ``rpt_tpu_torch/_build/`` at first use, and loaded with ctypes. Each
+file name carries a hash of its source and the flags, so an edited kernel
+is rebuilt and a stale library is never loaded.
 
 `compile_and_load` is the one compile-and-load path of the package: the
 native SAH BVH builder (`accel/bvh.py`) goes through it with g++.
@@ -24,6 +24,8 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -46,17 +48,22 @@ _SIGNATURES = {
     # queries, nq, points, starts, nx, ny, nz, ox, oy, oz, h, inv_h, k,
     # out_idx, out_d2, stream
     "rpt_knn_grid": [_P, _I, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _I, _P, _P, _P],
+    # origin, dir, n, nodes, leaves, t_min, limit, best_time, active, out_t,
+    # out_tri, out_u, out_v, out_w, stream
+    "rpt_bvh_closest_hit": [_P, _P, _I, _P, _P, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    # origin, dir, n, nodes, leaves, t_min, limit, active, out_hit, stream
+    "rpt_bvh_any_hit": [_P, _P, _I, _P, _P, _F, _P, _P, _P, _P],
 }
 
 
 class KernelLibrary:
-    """The loaded library, its path, its build time and the compiler's
-    report (``-Xptxas -v``: registers, shared memory and spills per
-    kernel)."""
+    """The entry points of the loaded libraries (``lib.<name>``), their
+    paths, the wall time of the parallel build and the compiler's report
+    (``-Xptxas -v``: registers, shared memory and spills per kernel)."""
 
-    def __init__(self, lib, path: str, build_seconds: float, log: str):
+    def __init__(self, lib, paths: list, build_seconds: float, log: str):
         self.lib = lib
-        self.path = path
+        self.paths = paths
         self.build_seconds = build_seconds
         self.log = log
 
@@ -108,14 +115,29 @@ def compile_and_load(stem: str, sources: list[str], command: list[str],
 
 
 def library() -> KernelLibrary:
-    """Build (once per process, and only when the sources changed) and
-    load the kernel library."""
+    """Build (once per process, and only the sources that changed) and load
+    the kernel libraries, one ``nvcc`` per source, all in parallel."""
     global _LIBRARY
     if _LIBRARY is None:
         sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
-        signatures = {name: (args, ctypes.c_int) for name, args in _SIGNATURES.items()}
-        _LIBRARY = KernelLibrary(*compile_and_load("rpt_kernels", sources,
-                                                   [_nvcc(), *NVCC_FLAGS], signatures))
+        command = [_nvcc(), *NVCC_FLAGS]
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(sources)) as pool:
+            built = list(pool.map(
+                lambda src: compile_and_load(os.path.basename(src)[:-3], [src], command, {}),
+                sources))
+        entry = SimpleNamespace()
+        for lib, *_ in built:
+            for name, args in _SIGNATURES.items():
+                fn = getattr(lib, name, None)
+                if fn is not None:
+                    fn.argtypes, fn.restype = args, ctypes.c_int
+                    setattr(entry, name, fn)
+        missing = sorted(set(_SIGNATURES) - set(vars(entry)))
+        if missing:
+            raise RuntimeError(f"kernel entry points missing from {CSRC_DIR}: {missing}")
+        _LIBRARY = KernelLibrary(entry, [b[1] for b in built], time.perf_counter() - t0,
+                                 "".join(b[3] for b in built))
     return _LIBRARY
 
 

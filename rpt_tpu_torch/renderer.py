@@ -1,16 +1,18 @@
-"""Renderer: the builder-style front end and the photon-mapping camera
-pass — port of `rpt_tpu/renderer.py` (`rpt/src/renderer.rs:
-23-184`).
+"""Renderer: the chainable front end, the path-tracing launches and
+the photon-mapping camera pass — port of `rpt_tpu/renderer.py`
+(`rpt/src/renderer.rs:23-184`).
 
 Same fields and defaults as the reference (renderer.rs:60-75), plus an
 explicit ``device``: ``Renderer(scene, camera, device="cuda")`` raises
-where CUDA is absent; it never carries on on the CPU. The camera pass
-traces one wavefront per pixel sample in a Python loop over absolute
-sample indices, so per-sample RNG streams match the JAX package's.
+where CUDA is absent; it never carries on on the CPU. Both passes trace
+one wavefront per pixel sample in a Python loop over absolute sample
+indices, so per-sample RNG streams match the JAX package's.
 
-Only the point-photon x beam-query integrator is ported
-(`photon_point_query_beam_render`). ``render``/``sample`` need the path
-tracer (``trace_surface``) and raise until it is ported.
+Ported: path tracing of scenes without media (``render``, ``sample``,
+``iterative_render`` through `integrators.path.trace_surface`) and the
+point-photon x beam-query integrator (``photon_point_query_beam_render``).
+A scene with a medium needs ``trace_volumetric``, which is not ported:
+``render`` raises for it.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from .ray import Ray
 from .scene import CompiledScene, Scene
 
 PIXEL_CHUNK = 16384  # lanes per estimate wavefront (bounds peak memory)
+PATH_CHUNK = 1 << 18  # lanes per path-tracing wavefront (a 512^2 sample is one)
 
 
 @dataclass
@@ -42,17 +45,21 @@ class Renderer:
     height_: int = 600
     exposure_value_: float = 0.0
     filter_: Filter = Filter()
+    stepsize_: float = 0.0
     max_bounces_: int = 0
     num_samples_: int = 1
     gather_size_: int = 50
     gather_size_volume_: int = 50
     watts_: float = 100.0
     seed_: int = 0
+    media_max_depth_: int = 32
     device: object = field(default="cpu", kw_only=True)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
         self._compiled: CompiledScene | None = None
+        self._sample_index = 0
+        self.ray_counter = RayCounter()
         self.phase_seconds: dict = {}
         self.photon_counts: dict = {}
         self.photon_map = None
@@ -72,6 +79,10 @@ class Renderer:
 
     def filter(self, f: Filter):
         self.filter_ = f
+        return self
+
+    def stepsize(self, v):
+        self.stepsize_ = float(v)
         return self
 
     def max_bounces(self, v):
@@ -98,6 +109,10 @@ class Renderer:
         self.seed_ = int(v)
         return self
 
+    def media_max_depth(self, v):
+        self.media_max_depth_ = int(v)
+        return self
+
     # ------------------------------------------------------------------
     @property
     def compiled(self) -> CompiledScene:
@@ -106,10 +121,45 @@ class Renderer:
         return self._compiled
 
     def render(self) -> np.ndarray:
-        raise NotImplementedError("path tracing (trace_surface) is not ported yet")
+        """Path trace and return an (H, W, 3) sRGB u8 image
+        (renderer.rs:137-141)."""
+        buffer = Buffer(self.width_, self.height_, self.filter_)
+        self.sample(self.num_samples_, buffer)
+        self._last_buffer = buffer
+        return buffer.image()
+
+    def iterative_render(self, callback_interval: int, callback) -> Buffer:
+        """Progressive render; ``callback(iteration, buffer)`` every
+        ``callback_interval`` samples (renderer.rs:144-156)."""
+        callback_interval = min(callback_interval, self.num_samples_)
+        buffer = Buffer(self.width_, self.height_, self.filter_)
+        iteration = 0
+        while iteration < self.num_samples_:
+            steps = min(self.num_samples_ - iteration, callback_interval)
+            self.sample(steps, buffer)
+            iteration += steps
+            callback(iteration, buffer)
+        return buffer
 
     def sample(self, iterations: int, buffer: Buffer):
-        raise NotImplementedError("path tracing (trace_surface) is not ported yet")
+        """Trace ``iterations`` paths per pixel and add ONE sample (their
+        mean, exposure-scaled) to the buffer (renderer.rs:158-184). Sample
+        indices are absolute across calls, as in the JAX package."""
+        scene = self.compiled
+        if scene.media:
+            raise NotImplementedError(
+                "path tracing a scene with a medium needs trace_volumetric, which is not "
+                "ported yet")
+        t0 = time.perf_counter()
+        total, segments = _path_pass(scene, self.camera, self.width_, self.height_,
+                                     sampling.key(self.seed_, self.device), self._sample_index,
+                                     int(iterations), self.max_bounces_)
+        elapsed = time.perf_counter() - t0
+        self._sample_index += iterations
+        self.ray_counter.record(scene, self.width_, self.height_, iterations,
+                                self.max_bounces_, self.media_max_depth_, elapsed, segments)
+        mean = total / iterations * (2.0**self.exposure_value_)
+        buffer.add_samples(mean.reshape(self.height_, self.width_, 3))
 
     # ------------------------------------------------------------------
     # Photon mapping (photon.rs:642-720)
@@ -171,6 +221,35 @@ class Renderer:
         return buffer.image()
 
 
+class RayCounter:
+    """Rays/s instrumentation (`rpt_tpu/renderer.py:293`; the reference has
+    none). ``rays`` is the JAX package's estimate: every path runs every
+    level and casts one shadow segment per non-ambient light at each.
+    ``segments`` counts the segments `trace_surface` traced, as
+    `bench.py` does."""
+
+    def __init__(self):
+        self.rays = 0
+        self.segments = 0
+        self.seconds = 0.0
+
+    def record(self, scene, width, height, iterations, max_bounces, media_depth, elapsed,
+               segments: int = 0):
+        paths = width * height * iterations
+        n_shadow = sum(1 for light in scene.lights if light.kind != "ambient")
+        if scene.media:
+            segs = 1.0 / (1.0 - 0.8)  # expected path length under RR p=0.8
+        else:
+            segs = max_bounces + 1
+        self.rays += int(paths * segs * (1 + n_shadow))
+        self.segments += int(segments)
+        self.seconds += elapsed
+
+    @property
+    def mrays_per_sec(self) -> float:
+        return self.rays / self.seconds / 1e6 if self.seconds else 0.0
+
+
 def _morton2(px: np.ndarray, py: np.ndarray) -> np.ndarray:
     """Interleave 16-bit pixel coords -> 32-bit Morton codes."""
 
@@ -203,11 +282,11 @@ def _pixel_grid(width: int, height: int):
     return xn, yn, perm, inv
 
 
-def camera_rays(scene, camera: Camera, width: int, height: int, key, s: int) -> Ray:
-    """Sample ``s``'s camera wavefront in Morton lane order: per-pixel keys
-    ``fold_in(key, pixel_id)`` folded by the absolute sample index, jitter
-    from folds 1 and 2, the lens from fold 3 (`rpt_tpu/renderer.py:
-    407-418`)."""
+def camera_wavefront(scene, camera: Camera, width: int, height: int, key, s: int):
+    """Sample ``s``'s camera wavefront in Morton lane order and its
+    per-lane keys ``fold(fold_in(key, pixel_id), s)`` (the absolute sample
+    index): jitter from folds 1 and 2, the lens from fold 3, the trace from
+    fold 4 (`rpt_tpu/renderer.py:370-379`). Returns ``(ray, keys)``."""
     dev = scene.device
     dim = float(max(width, height))
     xn_np, yn_np, pixel_ids, _ = _pixel_grid(width, height)
@@ -216,7 +295,39 @@ def camera_rays(scene, camera: Camera, width: int, height: int, key, s: int) -> 
     keys = sampling.fold(sampling.fold_in(key, torch.tensor(pixel_ids, device=dev)), s)
     jx = sampling.uniform(sampling.fold(keys, 1), -1.0 / dim, 1.0 / dim)
     jy = sampling.uniform(sampling.fold(keys, 2), -1.0 / dim, 1.0 / dim)
-    return camera.cast_ray(xn + jx, yn + jy, sampling.fold(keys, 3))
+    return camera.cast_ray(xn + jx, yn + jy, sampling.fold(keys, 3)), keys
+
+
+def camera_rays(scene, camera: Camera, width: int, height: int, key, s: int) -> Ray:
+    """Sample ``s``'s camera wavefront (`camera_wavefront` without keys)."""
+    return camera_wavefront(scene, camera, width, height, key, s)[0]
+
+
+def _path_pass(scene, camera: Camera, width: int, height: int, key, s0: int, n_samples: int,
+               max_bounces: int):
+    """The per-sample launch of `rpt_tpu/renderer.py::build_launch`: for
+    each absolute sample index s0..s0+n_samples-1, one camera wavefront
+    traced by `trace_surface` in PATH_CHUNK-lane pieces (per-pixel keys
+    make the image independent of the chunking), summed in float32.
+    Returns the (H*W, 3) radiance sum in raster order (f64) and the number
+    of traced ray segments."""
+    from .integrators.path import trace_surface
+
+    dev = scene.device
+    n_pix = width * height
+    total = torch.zeros((n_pix, 3), dtype=torch.float32, device=dev)
+    segments = torch.zeros((), dtype=torch.int64, device=dev)
+    for s in range(s0, s0 + n_samples):
+        ray, keys = camera_wavefront(scene, camera, width, height, key, s)
+        trace_keys = sampling.fold(keys, 4)
+        for c in range(0, n_pix, PATH_CHUNK):
+            sl = slice(c, min(c + PATH_CHUNK, n_pix))
+            color, segs = trace_surface(scene, scene.tables, Ray(ray.origin[sl], ray.dir[sl]),
+                                        trace_keys[sl], max_bounces, return_stats=True)
+            total[sl] += color.to_array()
+            segments += segs
+    inv = torch.tensor(_pixel_grid(width, height)[3], device=dev)
+    return total[inv].cpu().numpy().astype(np.float64), int(segments)
 
 
 def _photon_pass(scene, camera: Camera, width: int, height: int, pmap, key,

@@ -11,6 +11,7 @@ BVH; analytic primitives keep inverse and normal transforms.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -104,8 +105,14 @@ class CompiledScene:
     t_min: float  # scale-aware ray epsilon (reference: 1e-12 in f64)
     shadow_eps: float  # relative back-off of the shadow-visibility test
     scale: float  # scene diameter estimate
+    # "occlusion": no occluder strictly closer than the light (default);
+    # "exact": the reference's literal NEE test (renderer.rs:395-396), the
+    # closest hit must lie at the light distance (`rpt_tpu/scene.py:121`)
+    nee_mode: str = "occlusion"
     device: torch.device = torch.device("cpu")
     tables: dict = field(compare=False, repr=False, default=None)
+    # host seconds of the mesh's SAH build ("sah") and table packing ("pack")
+    build_seconds: dict = field(compare=False, repr=False, default_factory=dict)
 
     def env_color(self, tables, direction) -> Vec3:
         return self.environment.get_color(tables["env"], direction)
@@ -201,13 +208,17 @@ def compile_scene(scene: Scene, device="cpu") -> CompiledScene:
         )
 
     n_tris = 0
+    build_seconds = {}
     if tri_v:
         v = np.concatenate(tri_v)
         n = np.concatenate(tri_n)
         m = np.concatenate(tri_m)
         n_tris = len(v)
+        t0 = time.perf_counter()
         bvh = build_bvh(v.min(1), v.max(1))
+        t1 = time.perf_counter()
         nodes, leaves, shade, stack_depth = pack_bvh(bvh, v, n, m)
+        build_seconds = {"sah": t1 - t0, "pack": time.perf_counter() - t1}
         tables["bvh"] = BVHTables(
             nodes=torch.from_numpy(nodes).to(device),
             leaves=torch.from_numpy(leaves).to(device),
@@ -247,8 +258,10 @@ def compile_scene(scene: Scene, device="cpu") -> CompiledScene:
         t_min=2e-4 * scale,
         shadow_eps=1e-3,
         scale=scale,
+        nee_mode=getattr(scene, "nee_mode", "occlusion"),
         device=device,
         tables=tables,
+        build_seconds=build_seconds,
     )
 
 

@@ -25,12 +25,14 @@ def _modules():
 def test_modules_import_without_jax():
     names = _modules()
     assert {"rpt_tpu_torch.integrators.photon", "rpt_tpu_torch.ops.sphere_sweep",
-            "rpt_tpu_torch.accel.knn", "rpt_tpu_torch.renderer"} <= set(names)
+            "rpt_tpu_torch.accel.knn", "rpt_tpu_torch.renderer",
+            "rpt_tpu_torch.integrators.path", "rpt_tpu_torch.ops.bvh_traverse",
+            "rpt_tpu_torch.meshes"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
         "    importlib.import_module(name)\n"
-        "import torch_volumetric_beamphoton_lampshade\n"
+        "import torch_volumetric_beamphoton_lampshade, torch_dragon, torch_sphere, torch_cornell\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'rpt_tpu')]\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n"
@@ -57,11 +59,15 @@ def test_cuda_device_raises_without_a_card():
 
 
 def test_path_tracing_is_not_ported_yet():
+    """Path tracing is ported: `render()` works on the CPU (an 8x8 sphere
+    under a point light, 2 spp); the photon-map kind still raises."""
     scene = tr.Scene()
     scene.add(tr.Object(tr.sphere()))
-    r = tr.Renderer(scene, tr.Camera()).width(8).height(8)
-    with pytest.raises(NotImplementedError):
-        r.render()
+    scene.add(tr.Light.Point((50.0, 50.0, 50.0), (0.0, 5.0, 5.0)))
+    r = tr.Renderer(scene, tr.Camera()).width(8).height(8).num_samples(2)
+    img = r.render()
+    assert img.shape == (8, 8, 3) and img.dtype == np.uint8 and img.max() > 0
+    assert np.isfinite(r._last_buffer.raw()).all()
     with pytest.raises(NotImplementedError):
         r.photon_render(100, "photon_map")
     assert np.isfinite(r.scene.compile("cpu").t_min)

@@ -1,5 +1,6 @@
 """The port's kernel wrappers without JAX: the device grid build, input
-checks, and K-sweep and K-knn against their plain versions on the card.
+checks, and K-sweep, K-knn, K1 and K2 against their plain versions on the
+card.
 
 This file imports neither jax nor rpt_tpu, so it also runs on a GPU
 machine without JAX (`tests/conftest.py` imports jax, hence
@@ -12,8 +13,24 @@ import numpy as np
 import pytest
 import torch
 
+from rpt_tpu_torch.accel.bvh import build_bvh, pack_bvh
 from rpt_tpu_torch.accel.knn import build_grid, knn_plain, knn_query
+from rpt_tpu_torch.intersect import BVHTables
+from rpt_tpu_torch.ops.bvh_traverse import (
+    bvh_any_hit, bvh_any_hit_plain, bvh_closest_hit, bvh_closest_hit_plain,
+)
 from rpt_tpu_torch.ops.sphere_sweep import pack_spheres_transposed, sphere_sweep, sphere_sweep_plain
+
+
+def _random_mesh(n_tris, seed, device="cpu"):
+    """A soup of ``n_tris`` random triangles in [-1, 1]^3 (sizes ragged,
+    leaves partly filled), packed."""
+    rng = np.random.default_rng(seed)
+    centre = rng.uniform(-1, 1, (n_tris, 1, 3))
+    v = centre + rng.normal(0, 0.08, (n_tris, 3, 3))
+    nodes, leaves, shade, depth = pack_bvh(build_bvh(v.min(1), v.max(1)), v, v,
+                                           np.zeros(n_tris, np.int32))
+    return BVHTables(*(torch.from_numpy(a).to(device) for a in (nodes, leaves, shade)), depth)
 
 
 def test_knn_fewer_points_than_k():
@@ -53,6 +70,18 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError):
         sphere_sweep(torch.zeros((2, 3)), torch.zeros((2, 3)), torch.zeros(3),
                      torch.zeros((10, 512)), 0.0, torch.ones(3), n_spheres=1, phase_const=0.1)
+    bvh = _random_mesh(100, 0)
+    o, d, t = torch.zeros((2, 3)), torch.ones((2, 3)), torch.ones(2)
+    with pytest.raises(ValueError):  # dtype
+        bvh_closest_hit(bvh, o.double(), d, 0.0, t)
+    with pytest.raises(ValueError):  # shape
+        bvh_closest_hit(bvh, o, d, 0.0, torch.ones(3))
+    with pytest.raises(ValueError):  # contiguity
+        bvh_any_hit(bvh, o, torch.ones((3, 2)).T, 0.0, t)
+    with pytest.raises(ValueError):  # mask type
+        bvh_any_hit(bvh, o, d, 0.0, t, active=torch.ones(2))
+    with pytest.raises(ValueError):  # a tree deeper than the kernels' stack
+        bvh_any_hit(BVHTables(bvh.nodes, bvh.leaves, bvh.shade, 72), o, d, 0.0, t)
 
 
 @pytest.mark.cuda
@@ -93,3 +122,84 @@ def test_kernels_match_plain_on_card():
         assert valid.all() and torch.equal(d2, d2p)
         recomputed = ((grid.points[idx] - q[:, None, :]) ** 2).sum(-1)
         torch.testing.assert_close(recomputed, d2, rtol=1e-5, atol=1e-6)
+
+
+def test_plain_traversal_matches_brute_force():
+    """The plain K1/K2 (the ordered traversal) against the dense test of
+    every leaf row on a random soup: the same algebra on the same
+    triangles, in another order, so the same triangle and bit-equal t on
+    every lane (a soup has no shared edges to tie on), and the same any-hit
+    flags. The wrappers take the plain version for CPU tensors and launch
+    nothing."""
+    from rpt_tpu_torch.intersect import dense_tri_hit
+    from rpt_tpu_torch.ray import Hit, Ray
+    from rpt_tpu_torch.vec import Vec3
+
+    bvh = _random_mesh(700, 3)
+    rng = np.random.default_rng(4)
+    n = 1500
+    o = rng.uniform(-1.5, 1.5, (n, 3))
+    d = rng.uniform(-0.5, 0.5, (n, 3)) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o, d = (torch.tensor(a, dtype=torch.float32) for a in (o, d))
+    inf = torch.full((n,), float("inf"))
+    before = (bvh_closest_hit.launches, bvh_any_hit.launches)
+    t, tri, *_ = bvh_closest_hit(bvh, o, d, 1e-4, inf)
+    ray = Ray(Vec3(o[:, 0], o[:, 1], o[:, 2]), Vec3(d[:, 0], d[:, 1], d[:, 2]))
+    dense = dense_tri_hit(bvh, ray, 1e-4, Hit.none((n,)))
+    assert 0.3 < torch.isfinite(t).float().mean() < 0.95
+    assert torch.equal(t, dense.time)
+    limit = torch.tensor(rng.uniform(-0.5, 2.5, n), dtype=torch.float32)
+    occ = bvh_any_hit(bvh, o, d, 1e-4, limit)
+    assert 0.1 < occ.float().mean() < 0.9
+    assert torch.equal(occ, dense.time < limit)
+    assert (bvh_closest_hit.launches, bvh_any_hit.launches) == before
+
+
+@pytest.mark.cuda
+def test_bvh_kernels_match_plain_on_card():
+    """K1 and K2 against their plain versions on the card, on a ragged
+    random soup of 3001 triangles and 5003 rays (no multiple of a block),
+    with lanes masked off, per-lane limits and best times, and lanes with
+    limit -1 (K2): the same triangle (K1)
+    and flag (K2) on >= 99.9% of lanes; where the triangle agrees, t
+    within rtol 1e-6 and u, v, w within rtol 1e-6 and atol 1e-6 (they lie
+    in [0, 1], often near 0). Each wrapper launches its kernel once per
+    call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    dev = "cuda"
+    bvh = _random_mesh(3001, 1, dev)
+    rng = np.random.default_rng(2)
+    n = 5003
+    o = rng.uniform(-1.5, 1.5, (n, 3))
+    d = rng.uniform(-0.5, 0.5, (n, 3)) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o, d = (torch.tensor(a, dtype=torch.float32, device=dev) for a in (o, d))
+    best = torch.tensor(np.where(rng.random(n) < 0.2, rng.uniform(0.5, 2, n), np.inf),
+                        dtype=torch.float32, device=dev)
+    limit = torch.tensor(np.where(rng.random(n) < 0.1, -1.0, rng.uniform(0.2, 3, n)),
+                         dtype=torch.float32, device=dev)
+    active = torch.tensor(rng.random(n) > 0.1, device=dev)
+    t_min = 1e-4
+
+    before = bvh_closest_hit.launches
+    got = bvh_closest_hit(bvh, o, d, t_min, best, limit=limit.abs() * 2, active=active)
+    assert bvh_closest_hit.launches == before + 1
+    ref = bvh_closest_hit_plain(bvh, o, d, t_min, best, limit=limit.abs() * 2, active=active)
+    same = got[1] == ref[1]
+    assert same.float().mean() >= 0.999
+    assert 0.3 < (ref[1] >= 0).float().mean() < 0.95
+    assert bool((got[1][~active] == -1).all()) and torch.equal(got[0][~active], best[~active])
+    torch.testing.assert_close(got[0][same], ref[0][same], rtol=1e-6, atol=0.0)
+    hit = same & (ref[1] >= 0)
+    for a, b in zip(got[2:], ref[2:]):
+        torch.testing.assert_close(a[hit], b[hit], rtol=1e-6, atol=1e-6)
+
+    before = bvh_any_hit.launches
+    occ = bvh_any_hit(bvh, o, d, t_min, limit, active=active)
+    assert bvh_any_hit.launches == before + 1
+    occ_ref = bvh_any_hit_plain(bvh, o, d, t_min, limit, active=active)
+    assert 0.1 < occ_ref.float().mean() < 0.9
+    assert (occ == occ_ref).float().mean() >= 0.999
+    assert not bool(occ[~active | (limit < 0)].any())

@@ -11,8 +11,8 @@ lanes; the port's k-NN is exact. With the JAX package's photons and
 neighbour sets, the port's estimates meet the unmodified limits
 (`test_estimates_meet_golden_given_reference_photons_and_knn`, 6 values
 differ); with its own exact k-NN, 91 differ, and with the port's own
-photons as well, 118. The floor is a deviation from `_check_img`,
-recorded in PERF.md's open questions."""
+photons as well, 118. The floor is a deviation from `_check_img`, kept
+by decision for this JAX-made golden only (PERF.md, findings)."""
 
 import os
 import sys

@@ -109,16 +109,42 @@ def test_closest_hit_and_occluded_agree(lampshade):
 
 
 def test_dense_mesh_limit_raises():
-    """Meshes beyond the dense triangle test need the BVH kernels."""
-    scene = tr.Scene()
+    """Meshes beyond the dense triangle test (80 random triangles, 10 leaf
+    rows) now take the BVH traversal: with an analytic sphere beside them,
+    `closest_hit` and `occluded` agree with the JAX package's on >= 99.9%
+    of 2048 random rays (f32 grazing hits may flip a lane), times within
+    rtol 1e-5 where they agree; the sphere alone (`prim_occluded`)
+    occludes a subset of the lanes that the scene occludes."""
     rng = np.random.default_rng(0)
     tris = rng.uniform(-1, 1, (80, 3, 3))
-    scene.add(tr.Object(tr.Mesh(tris, np.repeat(np.cross(tris[:, 1] - tris[:, 0],
-                                                           tris[:, 2] - tris[:, 0])[:, None], 3, 1))))
-    cs = scene.compile("cpu")
-    ray = TRay(TVec3.from_array(np.zeros((4, 3))), TVec3.from_array(np.tile([0.0, 0.0, 1.0], (4, 1))))
-    with pytest.raises(NotImplementedError, match="BVH traversal"):
-        tint.closest_hit(cs, cs.tables, ray)
+    normals = np.repeat(np.cross(tris[:, 1] - tris[:, 0], tris[:, 2] - tris[:, 0])[:, None], 3, 1)
+    compiled = []
+    for pkg in (jr, tr):
+        scene = pkg.Scene()
+        scene.add(pkg.Object(pkg.Mesh(tris, normals)))
+        scene.add(pkg.Object(pkg.sphere().scale((0.4, 0.4, 0.4)).translate((0.0, 1.2, 0.0))))
+        compiled.append(scene.compile() if pkg is jr else scene.compile("cpu"))
+    jc, tc = compiled
+    assert tc.tables["bvh"].leaves.shape[0] > tint.DENSE_TRI_ROWS
+    o = rng.uniform(-2, 2, (2048, 3)).astype(np.float32)
+    d = rng.uniform(-0.8, 0.8, (2048, 3)) - o  # aimed into the soup
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    limit = rng.uniform(-0.5, 3.0, 2048).astype(np.float32)
+    jray = JRay(JVec3.from_array(o), JVec3.from_array(d))
+    ray = TRay(TVec3.from_array(o), TVec3.from_array(d))
+    jh = jint.closest_hit(jc, jc.tables, jray)
+    th = tint.closest_hit(tc, tc.tables, ray)
+    j_t, t_t = np.asarray(jh.time), th.time.numpy()
+    same = np.isfinite(j_t) == np.isfinite(t_t)
+    assert same.mean() >= 0.999 and 0.5 < np.isfinite(t_t).mean() < 1.0
+    hit = same & np.isfinite(j_t)
+    np.testing.assert_allclose(t_t[hit], j_t[hit], rtol=1e-5)
+    j_occ = np.asarray(jint.occluded(jc, jc.tables, jray, jnp.asarray(limit)))
+    t_occ = tint.occluded(tc, tc.tables, ray, torch.tensor(limit)).numpy()
+    assert 0.1 < t_occ.mean() < 0.9
+    assert (j_occ == t_occ).mean() >= 0.999
+    prim = tint.prim_occluded(tc, tc.tables, ray, torch.tensor(limit)).numpy()
+    assert prim.any() and (t_occ >= prim).all()
 
 
 def _floor_pairs(tc, n_points=512, n_pairs=4096, seed=5):

@@ -1,0 +1,50 @@
+"""Where the time of the port's path-traced dragon render goes.
+
+    python3 tools/profile_torch_path.py [--spp 2] [--size 512] [--device cuda]
+
+Compiles the scene of `examples/torch_dragon.py` (bench.py's dragon
+stand-in, ~871k triangles, 2 bounces), traces one untimed warm-up sample,
+then ``--spp`` samples under `torch.profiler`, and prints the wall time,
+the time the device was busy (the union of its kernels' intervals), that
+share of the wall, the number of kernels launched and the kernels that
+took the most device time, among them K1 (``closest_hit_kernel``) and K2
+(``any_hit_kernel``). Imports neither jax nor rpt_tpu.
+"""
+
+import argparse
+import os
+import sys
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path[:0] = [ROOT, os.path.join(ROOT, "examples"), os.path.dirname(os.path.abspath(__file__))]
+
+import torch_dragon as dr  # noqa: E402
+from profile_torch_photon import _profiled  # noqa: E402
+from rpt_tpu_torch import sampling  # noqa: E402
+from rpt_tpu_torch.renderer import _path_pass  # noqa: E402
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--device", default="cuda")
+    parser.add_argument("--size", type=int, default=dr.WIDTH)
+    parser.add_argument("--spp", type=int, default=2)
+    args = parser.parse_args()
+
+    r = dr.renderer(args.device, size=args.size, spp=args.spp)
+    scene, dev = r.compiled, r.device
+    key = sampling.key(r.seed_, dev)
+    print(f"profile: dragon {args.size}^2, {scene.n_tris} triangles, {args.spp} spp, "
+          f"{r.max_bounces_} bounces on "
+          f"{torch.cuda.get_device_name(dev) if dev.type == 'cuda' else 'cpu'}")
+    # warm-up: builds the kernels and the caching allocator's pools
+    _path_pass(scene, r.camera, r.width_, r.height_, key, 0, 1, r.max_bounces_)
+    _, segments = _profiled(f"trace {args.spp} spp", lambda: _path_pass(
+        scene, r.camera, r.width_, r.height_, key, 1, args.spp, r.max_bounces_), dev)
+    print(f"   {segments} ray segments")
+
+
+if __name__ == "__main__":
+    main()
