@@ -6,21 +6,27 @@ Builds the four hand-written CUDA kernels from `rpt_tpu_torch/csrc` (one
 nvcc per source, in parallel) and drives both ported paths end to end:
 
 - the point-photon x beam-query path at the lampshade example's own
-  parameters; it launches K-sweep and K-knn, which are then held against
-  their plain PyTorch versions on the render's real tables, and a small
-  render is checked against its golden image;
+  parameters; it launches K-sweep (once per camera wavefront) and K-knn,
+  which are then held against their plain PyTorch versions on the
+  render's real tables (K-sweep also on a ragged random case and on far
+  small spheres, where float32 cancellation matters: the estimate, bit
+  equality across two calls, the pierced pairs of every ray, and the
+  tiles its cull keeps), and a small render is checked against its
+  golden image;
 - the path tracer on the dragon scene of `bench.py` at its full size
   (~871k triangles, 512x512, 8 spp, 2 bounces); it launches K1 (closest
   hit) and K2 (any hit), which are then held against their plain versions
   on the render's own camera, bounce and shadow wavefronts, and the
   sphere and Cornell renders are checked against their golden images.
 
-Every phase prints one line; any failure raises and exits non-zero. The
+Every phase prints its lines; any failure raises and exits non-zero. The
 launch counts of each path are set to 0 just before it and read just
-after. The last three lines are the kernel report (JSON), the card's name
-and power limit, and the device report (JSON). It imports neither jax nor
-rpt_tpu, and exits non-zero without a result where CUDA is unavailable or
-the repository is not beside it.
+after. The last three lines are the kernel report (JSON: each kernel's
+launches on its path, its time, its plain version's, and its bound, the
+larger of its bytes at the HBM rate and its operations at the float32
+rate), the card's name and power limit, and the device report (JSON). It
+imports neither jax nor rpt_tpu, and exits non-zero without a result
+where CUDA is unavailable or the repository is not beside it.
 """
 
 import argparse
@@ -101,6 +107,7 @@ def phase_render(spp: int):
     import torch_volumetric_beamphoton_lampshade as ex
     from rpt_tpu_torch.accel.knn import knn_query
     from rpt_tpu_torch.ops.sphere_sweep import sphere_sweep
+    from rpt_tpu_torch.renderer import PIXEL_CHUNK
 
     r = ex.renderer("cuda", sample=spp, seed=0)
     sphere_sweep.launches = 0
@@ -119,14 +126,127 @@ def phase_render(spp: int):
     for name, n in launches.items():
         if n <= 0:
             raise RuntimeError(f"the render never launched {name}")
+    if launches["sphere_sweep"] != spp * -(-r.width_ * r.height_ // PIXEL_CHUNK):
+        raise RuntimeError(f"K-sweep launched {launches['sphere_sweep']} times for {spp} "
+                           "samples, not once per wavefront")
     return r, ex, launches
 
 
-def phase_sweep(r, ex):
-    from rpt_tpu_torch.intersect import closest_hit
+# The card's peaks for the bounds (H100 SXM data sheet, at 700 W): HBM
+# bytes/s and float32 operations/s outside the tensor cores.
+MEM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# K-sweep's operations, counted from `csrc/sphere_sweep.cu`: a pair test
+# (3 sub, 6 mul, 4 add, dd*dd, sub, clamp, 3 compares), a weighted pierced
+# pair (2 divisions, exp, 3 multiply-adds, ...) and a (ray, tile) cull test
+# (box distance, two square roots, the inflated radius, three slabs). Its
+# bound counts only the pierced pairs, the work any design must do; the
+# pair and tile tests are this design's way of finding them.
+PAIR_OPS, PIERCED_OPS, TILE_TEST_OPS = 20, 30, 60
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def _bound(n_bytes: float, n_ops: float):
+    """(bound_ms, bound_by): the larger of moving ``n_bytes`` at the HBM
+    rate and doing ``n_ops`` at the float32 rate."""
+    t_bytes, t_ops = n_bytes / MEM_BYTES_PER_S * 1e3, n_ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _cull_work(o, d, th, table, chunk: int = 2048):
+    """From the cull's plain version (`tile_keep_plain`): the (ray, tile)
+    tests K-sweep's cull does (a tile stops at the first ray of its block
+    that keeps it) and the tiles kept per block of RAYS rays."""
+    from rpt_tpu_torch.ops.sphere_sweep import RAYS, tile_keep_plain
+
+    tests, kept = 0, []
+    for s in range(0, o.shape[0], chunk):
+        keep = tile_keep_plain(o[s : s + chunk], d[s : s + chunk], th[s : s + chunk], table)
+        live = torch.full((-(-keep.shape[0] // RAYS),), RAYS, device=o.device)
+        live[-1] = keep.shape[0] - RAYS * (live.shape[0] - 1)
+        keep = torch.cat([keep, keep.new_zeros((live.shape[0] * RAYS - keep.shape[0],
+                                                 keep.shape[1]))])
+        keep = keep.reshape(-1, RAYS, keep.shape[1])
+        any_ = keep.any(dim=1)
+        first = torch.argmax(keep.to(torch.uint8), dim=1)
+        tests += int(torch.where(any_, first + 1, live[:, None]).sum())
+        kept.append(any_.sum(dim=1))
+    return tests, torch.cat(kept)
+
+
+def _sweep_case(label, o, d, th, table, ext, col, phase_const):
+    """K-sweep on one case against its plain version: the estimate (rtol
+    `SWEEP_RTOL`), bit equality across two calls, the pierced pairs of
+    every ray, and the work the cull leaves. Returns the case's numbers."""
     from rpt_tpu_torch.ops.sphere_sweep import (
-        pack_spheres_transposed, sphere_sweep, sphere_sweep_plain,
+        RAYS, TILE, pierced_count, pierced_count_plain, sphere_sweep, sphere_sweep_plain,
     )
+
+    kw = dict(n_spheres=table.n_spheres, phase_const=phase_const)
+    out = sphere_sweep(o, d, th, table, ext, col, **kw)
+    again = sphere_sweep(o, d, th, table, ext, col, **kw)
+    ref, plain_ms = _events_ms(lambda: sphere_sweep_plain(o, d, th, table.spheres_t, ext, col,
+                                                          **kw))
+    ms = _time_ms(lambda: sphere_sweep(o, d, th, table, ext, col, **kw), 10)
+    err = float((out - ref).abs().max())
+    ok = bool(torch.allclose(out, ref, rtol=SWEEP_RTOL, atol=1e-6 * float(ref.abs().max())))
+    bitwise = bool(torch.equal(out, again))
+    count, kept = pierced_count(o, d, th, table)
+    count_ref = pierced_count_plain(o, d, th, table.spheres_t, table.n_spheres)
+    same = float((count.long() == count_ref).float().mean())
+    tile_tests, kept_plain = _cull_work(o, d, th, table)
+    n, p = o.shape[0], table.n_spheres
+    pair_tests = int(kept.sum()) * TILE * RAYS
+    pierced = int(count_ref.sum())
+    print(f"[K-sweep] {label}: {n} rays x {p} spheres, tile {TILE}: tiles kept "
+          f"{int(kept.sum())} of {kept.numel() * table.n_tiles} (block, tile) pairs (plain cull "
+          f"{int(kept_plain.sum())}); pair tests {pair_tests} = {pair_tests / (n * p):.5f} of "
+          f"dense {n * p}; tile tests {tile_tests}; pierced pairs {pierced} "
+          f"({pierced / max(n, 1):.1f} per ray); rays with the plain pierced count {same:.6f}; "
+          f"max abs err {err:.3e} ok {ok}; bit-identical across calls {bitwise}; kernel "
+          f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
+    if not (ok and bitwise and same == 1.0):
+        raise RuntimeError(f"K-sweep fails on {label}: agrees {ok}, bit-identical {bitwise}, "
+                           f"pierced counts equal on {same:.6f} of rays")
+    # the function's own work is weighing the pierced pairs; the pair and
+    # tile tests are what this design spends to find them
+    return {"err": err, "ms": ms, "plain_ms": plain_ms,
+            "bytes": _nbytes(o, d, th, table.records, table.bounds, out),
+            "ops": pierced * PIERCED_OPS,
+            "design_ops": pair_tests * PAIR_OPS + tile_tests * TILE_TEST_OPS + pierced * PIERCED_OPS,
+            "dense_ops": n * p * PAIR_OPS + pierced * PIERCED_OPS}
+
+
+def _far_small_case(g, n: int, clusters: int, copies: int):
+    """Rays from about the lampshade camera (z = -800, ~1,400 units from
+    the far wall) grazing spheres of radius 0.5 in tight clusters, where
+    float32 cancellation in oc2 - dd*dd exceeds r^2: each ray passes 0.3-1.0
+    units from a sphere centre, half of them stopping one unit past it."""
+    dev = g.device
+    hub = torch.rand((clusters, 3), device=dev, generator=g) * 556
+    pos = (hub.repeat_interleave(copies, dim=0)
+           + torch.randn((clusters * copies, 3), device=dev, generator=g) * 0.5)
+    target = pos[torch.randint(0, pos.shape[0], (n,), device=dev, generator=g)]
+    o = (torch.tensor([278.0, 273.0, -800.0], device=dev)
+         + torch.randn((n, 3), device=dev, generator=g) * 20)
+    across = torch.nn.functional.normalize(
+        torch.cross(target - o, torch.randn((n, 3), device=dev, generator=g), dim=1), dim=1)
+    aim = target + across * (0.3 + 0.7 * torch.rand((n, 1), device=dev, generator=g))
+    d = torch.nn.functional.normalize(aim - o, dim=1)
+    th = torch.where(torch.rand(n, device=dev, generator=g) < 0.5,
+                     (target - o).norm(dim=1) + 1.0, torch.full((n,), float("inf"), device=dev))
+    return pos, o, d, th
+
+
+def phase_sweep(r, ex):
+    """K-sweep on the lampshade's sample-0 wavefront (the render's own
+    table), on a ragged random case and on a far-small-sphere case; the
+    JSON entry carries the sample-0 numbers."""
+    from rpt_tpu_torch.intersect import closest_hit
+    from rpt_tpu_torch.ops.sphere_sweep import build_sphere_table, pack_spheres_transposed
     from rpt_tpu_torch.renderer import camera_rays
     from rpt_tpu_torch import sampling
 
@@ -136,49 +256,50 @@ def phase_sweep(r, ex):
                       sampling.fold_in(sampling.key(r.seed_, r.device), 2), 0)
     hit = closest_hit(scene, scene.tables, ray)
     ext = float(medium.extinction(ray.origin[0:1]).item())
-    args = (ray.origin.to_array().contiguous(), ray.dir.to_array().contiguous(),
-            torch.where(hit.valid, hit.time, float("inf")), pmap.spheres_t, ext,
-            torch.ones(3, device="cuda"))
-    kw = dict(n_spheres=pmap.n_spheres, phase_const=float(medium.phase_const))
-    out = sphere_sweep(*args, **kw)
-    ref = sphere_sweep_plain(*args, **kw)
-    torch.cuda.synchronize()
-    err = float((out - ref).abs().max())
-    atol = 1e-6 * float(ref.abs().max())
-    ok = bool(torch.allclose(out, ref, rtol=SWEEP_RTOL, atol=atol))
-    ms = _time_ms(lambda: sphere_sweep(*args, **kw), 5)
-    plain_ms = _time_ms(lambda: sphere_sweep_plain(*args, **kw), 1)
-    n, p = args[0].shape[0], pmap.n_spheres
-    print(f"[K-sweep] sample-0 rays {n} x {p} spheres: max abs err {err:.3e} "
-          f"(rtol {SWEEP_RTOL}, atol {atol:.3e}) ok {ok}; kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms; {n * p / (ms * 1e-3) / 1e9:.1f} G pair tests/s")
+    phase = float(medium.phase_const)
+    o, d = ray.origin.to_array().contiguous(), ray.dir.to_array().contiguous()
+    th = torch.where(hit.valid, hit.time, float("inf"))
+    one = torch.ones(3, device="cuda")
+    main = _sweep_case("lampshade sample 0", o, d, th, pmap.spheres, ext, one, phase)
+    bound_ms, bound_by = _bound(main["bytes"], main["ops"])
+    design_ms = _bound(main["bytes"], main["design_ops"])[0]
+    dense_ms = _bound(main["bytes"], main["dense_ops"])[0]
+    print(f"[K-sweep] lampshade sample 0: bound {bound_ms * 1e3:.1f} us ({bound_by}: "
+          f"{main['bytes']} bytes, pierced pairs {main['ops'] / PIERCED_OPS:.0f} x "
+          f"{PIERCED_OPS} ops); the pair and tile tests this design does {design_ms:.3f} ms of "
+          f"operations, the dense sweep's {dense_ms:.3f} ms; kernel {main['ms']:.3f} ms = "
+          f"{main['ms'] / bound_ms:.1f}x its bound, {main['ms'] / design_ms:.2f}x its "
+          f"design's work")
 
     # ragged synthetic case: neither N nor P a multiple of a block
     g = torch.Generator(device="cuda").manual_seed(0)
     n2, p2 = 1000, 5003
-    o = torch.rand((n2, 3), device="cuda", generator=g) * 100
-    d = torch.nn.functional.normalize(torch.randn((n2, 3), device="cuda", generator=g), dim=1)
-    th = torch.where(torch.rand(n2, device="cuda", generator=g) < 0.5,
-                     torch.rand(n2, device="cuda", generator=g) * 180 + 20,
-                     torch.full((n2,), float("inf"), device="cuda"))
+    o2 = torch.rand((n2, 3), device="cuda", generator=g) * 100
+    d2 = torch.nn.functional.normalize(torch.randn((n2, 3), device="cuda", generator=g), dim=1)
+    th2 = torch.where(torch.rand(n2, device="cuda", generator=g) < 0.5,
+                      torch.rand(n2, device="cuda", generator=g) * 180 + 20,
+                      torch.full((n2,), float("inf"), device="cuda"))
     sph = pack_spheres_transposed(torch.rand((p2, 3), device="cuda", generator=g) * 100,
                                   torch.rand(p2, device="cuda", generator=g) * 5 + 5,
                                   torch.randn((p2, 3), device="cuda", generator=g),
                                   torch.rand((p2, 3), device="cuda", generator=g))
     col = torch.full((3,), 0.5, device="cuda")
-    a = sphere_sweep(o, d, th, sph, 1e-3, col, n_spheres=p2, phase_const=kw["phase_const"])
-    b = sphere_sweep_plain(o, d, th, sph, 1e-3, col, n_spheres=p2,
-                           phase_const=kw["phase_const"])
-    torch.cuda.synchronize()
-    err2 = float((a - b).abs().max())
-    ok2 = bool(torch.allclose(a, b, rtol=SWEEP_RTOL, atol=1e-6 * float(b.abs().max())))
-    print(f"[K-sweep] ragged {n2} x {p2}: max abs err {err2:.3e} ok {ok2}")
-    if not (ok and ok2):
-        raise RuntimeError("K-sweep disagrees with its plain version")
+    ragged = _sweep_case(f"ragged {n2} x {p2}", o2, d2, th2, build_sphere_table(sph, p2), 1e-3,
+                         col, phase)
+
+    pos, o3, d3, th3 = _far_small_case(g, 16384, 2048, 128)
+    p3 = pos.shape[0]
+    sph3 = pack_spheres_transposed(pos, torch.full((p3,), 0.5, device="cuda"),
+                                   torch.zeros_like(pos), torch.rand((p3, 3), device="cuda",
+                                                                     generator=g))
+    far = _sweep_case("far small spheres", o3, d3, th3, build_sphere_table(sph3, p3), ext, one,
+                      phase)
     return {"name": "sphere_sweep", "route": "cuda",
             "source": "rpt_tpu_torch/csrc/sphere_sweep.cu",
-            "replaces": "rpt_tpu/ops/sphere_sweep.py:111", "max_abs_err": max(err, err2),
-            "ms": ms, "plain_ms": plain_ms}
+            "replaces": "rpt_tpu/ops/sphere_sweep.py:111",
+            "max_abs_err": max(main["err"], ragged["err"], far["err"]),
+            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
 
 
 def _knn_compare(grid, q, k):
@@ -214,7 +335,7 @@ def phase_knn(r):
     scene, pmap = r.compiled, r.photon_map
     g = torch.Generator(device="cuda").manual_seed(1)
     surface = pmap.surface_grid
-    volume = build_grid(pmap.spheres_t[0:3, :pmap.n_spheres].T.contiguous())
+    volume = build_grid(pmap.spheres.spheres_t[0:3, :pmap.spheres.n_spheres].T.contiguous())
     # the camera pass's queries: sample 0's surface gather points, as
     # surface_estimate forms them (the origin of space, outside the grid,
     # for a ray that hits nothing)
@@ -244,10 +365,18 @@ def phase_knn(r):
     if worst < KNN_ROW_AGREEMENT or not idx_ok:
         raise RuntimeError(f"K-knn agrees with brute force on only {worst:.5f} of rows, "
                            f"indices consistent {idx_ok}")
-    # the reported times are the camera pass's (the last case)
+    # the reported times are the camera pass's (the last case); its bound:
+    # the grid's points and cell starts and the queries read once, the
+    # indices and distances written once; at least 8 operations for each of
+    # the k distances of a query
+    bound_ms, bound_by = _bound(_nbytes(grid.points, grid.starts, q) + q.shape[0] * k * 8,
+                                q.shape[0] * k * 8)
+    print(f"[K-knn] camera pass bound {bound_ms * 1e3:.1f} us ({bound_by}); kernel "
+          f"{ms / bound_ms:.1f}x its bound")
     return {"name": "knn_query", "route": "cuda", "source": "rpt_tpu_torch/csrc/knn.cu",
             "replaces": "rpt_tpu/accel/grid.py:605", "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms}
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
 
 
 def phase_golden(ex):
@@ -366,6 +495,15 @@ def _events_ms(fn):
     return out, start.elapsed_time(end)
 
 
+def _traverse_bound(args, kwargs, outs):
+    """K1/K2's bound on one wavefront: the rays and their per-lane inputs,
+    the node and leaf rows (each read once) and the results moved; at
+    least one box test (~20 operations) per lane."""
+    bvh, lanes = args[0], args[1].shape[0]
+    inputs = [a for a in (*args[1:], *kwargs.values()) if isinstance(a, torch.Tensor)]
+    return _bound(_nbytes(*inputs, bvh.nodes, bvh.leaves, *outs), lanes * 20)
+
+
 def phase_traverse(r):
     """K1 on sample 0's camera and level-1 bounce wavefronts, K2 on its
     level-0 and level-1 batched shadow wavefronts (-1 limits included),
@@ -407,6 +545,8 @@ def phase_traverse(r):
         k1["max_abs_err"] = max(k1["max_abs_err"], *errs.values())
         if label == "camera":
             k1["ms"], k1["plain_ms"] = ms, plain_ms
+            k1["bound_ms"], k1["bound_by"] = _traverse_bound(args, kwargs, got)
+            k1["library_ms"] = None
     entries.append(k1)
 
     # level 0's shadow rays leave the convex-ish mesh unoccluded; level 1's
@@ -433,6 +573,8 @@ def phase_traverse(r):
                                 float((got.float() - ref.float()).abs().max()))
         if level == 1:
             k2["ms"], k2["plain_ms"] = ms, plain_ms
+            k2["bound_ms"], k2["bound_by"] = _traverse_bound(args, kwargs, (got,))
+            k2["library_ms"] = None
     entries.append(k2)
     if worst < TRAVERSE_AGREEMENT:
         raise RuntimeError(f"K1/K2 agree with their plain versions on only {worst:.6f} "

@@ -54,7 +54,7 @@ def camera() -> rpt.Camera:
                       up=(0.0, 1.0, 0.0), fov=0.686)
 
 
-def renderer(device="cpu", size=48, spp=24, seed=42) -> rpt.Renderer:
+def renderer(device="cuda", size=48, spp=24, seed=42) -> rpt.Renderer:
     return (rpt.Renderer(build_scene(), camera(), device=device).width(size).height(size)
             .max_bounces(2).num_samples(spp).seed(seed))
 

@@ -45,7 +45,7 @@ def camera() -> rpt.Camera:
     return rpt.Camera.look_at((-2.5, 4.0, 6.5), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0), math.pi / 6)
 
 
-def renderer(device="cpu", size=WIDTH, spp=SPP, seed=0, scene=None) -> rpt.Renderer:
+def renderer(device="cuda", size=WIDTH, spp=SPP, seed=0, scene=None) -> rpt.Renderer:
     return (rpt.Renderer(scene if scene is not None else build_scene(), camera(), device=device)
             .width(size).height(size).max_bounces(MAX_BOUNCES).num_samples(spp).seed(seed))
 

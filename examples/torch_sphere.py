@@ -28,7 +28,7 @@ def camera() -> rpt.Camera:
     return rpt.Camera.look_at((-2.5, 4.0, 6.5), (0.0, -0.25, 0.0), (0.0, 1.0, 0.0), math.pi / 4)
 
 
-def renderer(device="cpu", width=64, height=36, spp=16, seed=42) -> rpt.Renderer:
+def renderer(device="cuda", width=64, height=36, spp=16, seed=42) -> rpt.Renderer:
     return (rpt.Renderer(build_scene(), camera(), device=device).width(width).height(height)
             .max_bounces(2).num_samples(spp).seed(seed))
 

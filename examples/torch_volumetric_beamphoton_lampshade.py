@@ -89,7 +89,7 @@ def build_scene(light_mtl: rpt.Material) -> rpt.Scene:
     return scene
 
 
-def renderer(device="cpu", size=size, bounce=bounce, sample=sample, photons=photons,
+def renderer(device="cuda", size=size, bounce=bounce, sample=sample, photons=photons,
              seed=0) -> rpt.Renderer:
     """The example's renderer (its own parameters by default), with the
     medium added and watts scaled by the photon count, on ``device``."""

@@ -12,7 +12,8 @@ is:
   sort of primitive centroids + Karras 2012 binary radix tree. Every step
   (range finding, splits, ropes, bounding boxes) is a fixed-bound
   vectorized pass, so an 871k-triangle dragon builds in seconds on one CPU
-  core. A C++ builder drop-in (``rpt_tpu/native``) accelerates this further.
+  core. A C++ builder drop-in (the port's copy, ``csrc/bvh_builder.cpp``)
+  accelerates this further.
 * **Layout**: SoA arrays — node AABBs, left-child index, leaf ranges, and a
   *rope* (miss link). Leaves cover contiguous runs of Morton-sorted
   primitives (max ``LEAF_SIZE``).
@@ -30,7 +31,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from ..ops._build import compile_and_load
+from ..ops._build import CSRC_DIR, compile_and_load
 
 LEAF_SIZE = 8  # must match rpt_tpu_torch.intersect.LEAF_TRIS
 SENTINEL = np.int32(-1)
@@ -407,13 +408,12 @@ def _find_splits(keys: np.ndarray, first: np.ndarray, last: np.ndarray) -> np.nd
 
 
 # ---------------------------------------------------------------------------
-# Native binned-SAH builder. The C++ source is the JAX package's own
-# (`rpt_tpu/native/bvh_builder.cpp`), read by path and compiled with g++
-# into this package's build directory on first use; the library has a
-# plain C interface loaded with ctypes.
+# Native binned-SAH builder. The C++ source is this package's own copy,
+# `csrc/bvh_builder.cpp`, compiled with g++ into the package's build
+# directory on first use; the library has a plain C interface loaded with
+# ctypes.
 
-_REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-BVH_SOURCE = os.path.join(_REPO, "rpt_tpu", "native", "bvh_builder.cpp")
+BVH_SOURCE = os.path.join(CSRC_DIR, "bvh_builder.cpp")
 
 _bvh_lib = None
 

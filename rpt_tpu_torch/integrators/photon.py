@@ -42,7 +42,9 @@ from ..dtypes import DTYPE, INF
 from ..intersect import closest_hit, occluded
 from ..lights import sample_shape
 from ..materials import bsdf, sample_f
-from ..ops.sphere_sweep import pack_spheres_transposed, sphere_sweep
+from ..ops.sphere_sweep import (
+    SphereTable, build_sphere_table, pack_spheres_transposed, sphere_sweep,
+)
 from ..ray import Ray
 from ..vec import Vec3, where
 
@@ -205,14 +207,13 @@ def _shoot_launch(scene, tables, light_index: int, power_scalar: float, max_dept
 @dataclass
 class PhotonMapData:
     """Point-beam photon map: the surface cloud in grid order (``surface``
-    rows indexed by the k-NN's ``idx``) and the packed photon-sphere table
-    (`ops.sphere_sweep.pack_spheres_transposed`)."""
+    rows indexed by the k-NN's ``idx``) and the photon spheres as K-sweep's
+    table (`ops.sphere_sweep.build_sphere_table`, built once per map)."""
 
     kind: str
     surface_grid: PhotonGrid
     surface: torch.Tensor  # (S, PHOTON_ROW), grid order
-    spheres_t: torch.Tensor  # (FIELDS, P)
-    n_spheres: int
+    spheres: SphereTable
 
 
 def build_photon_map(scene, tables, surface_rows, volume_rows, kind: str,
@@ -229,8 +230,9 @@ def build_photon_map(scene, tables, surface_rows, volume_rows, kind: str,
     if nv:
         print("Finished calculating Photon radiuses "
               f"{(float(radius.mean()), float(radius.max()), float(radius.min()))}")
-    spheres_t = pack_spheres_transposed(v[:, 0:3], radius, v[:, 3:6], v[:, 6:9])
-    return PhotonMapData(kind, s_grid, surface, spheres_t, nv)
+    spheres = build_sphere_table(
+        pack_spheres_transposed(v[:, 0:3], radius, v[:, 3:6], v[:, 6:9]), nv)
+    return PhotonMapData(kind, s_grid, surface, spheres)
 
 
 def _knn_radius_device(grid: PhotonGrid, k: int, chunk: int = 1 << 18) -> torch.Tensor:
@@ -295,7 +297,7 @@ def volume_estimate_spheres(pmap: PhotonMapData, medium, ray: Ray, hit) -> Vec3:
     constant-phase medium (both ported presets are)."""
     n = ray.origin.x.shape[0]
     dev = ray.origin.x.device
-    if pmap.n_spheres == 0:
+    if pmap.spheres.n_spheres == 0:
         return Vec3.zeros(n, dev)
     if medium.phase_const is None:
         raise NotImplementedError("the sphere sweep needs a constant-phase medium")
@@ -304,8 +306,8 @@ def volume_estimate_spheres(pmap: PhotonMapData, medium, ray: Ray, hit) -> Vec3:
     hit_time = torch.where(hit.valid, hit.time, INF)
     out = sphere_sweep(
         ray.origin.to_array().contiguous(), ray.dir.to_array().contiguous(), hit_time,
-        pmap.spheres_t, ext, torch.ones(3, dtype=DTYPE, device=dev),
-        n_spheres=pmap.n_spheres, phase_const=float(medium.phase_const),
+        pmap.spheres, ext, torch.ones(3, dtype=DTYPE, device=dev),
+        n_spheres=pmap.spheres.n_spheres, phase_const=float(medium.phase_const),
     )
     return Vec3(out[:, 0], out[:, 1], out[:, 2]) * med_color
 

@@ -8,7 +8,8 @@ file name carries a hash of its source and the flags, so an edited kernel
 is rebuilt and a stale library is never loaded.
 
 `compile_and_load` is the one compile-and-load path of the package: the
-native SAH BVH builder (`accel/bvh.py`) goes through it with g++.
+native SAH BVH builder (`csrc/bvh_builder.cpp`, loaded by `accel/bvh.py`)
+goes through it with g++.
 
 Each C entry point launches on the stream it is given, checks
 ``cudaGetLastError()`` right after every launch and returns the first
@@ -42,9 +43,12 @@ _F = ctypes.c_float
 
 # C signatures of the entry points (pointers and the stream as void*)
 _SIGNATURES = {
-    # ray_o, ray_d, hit_t, n, spheres_t, p, p_used, per_split, splits,
-    # ext, scale, med_color, partial, out, stream
-    "rpt_sphere_sweep": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _F, _F, _P, _P, _P, _P],
+    # ray_o, ray_d, hit_t, n, records, bounds, n_tiles, ext, scale,
+    # med_color, keep, lists, counts, partial, max_blocks, out, stream
+    "rpt_sphere_sweep": [_P, _P, _P, _I, _P, _P, _I, _F, _F, _P, _P, _P, _P, _P, _I, _P, _P],
+    # ray_o, ray_d, hit_t, n, records, bounds, n_tiles, keep, lists,
+    # counts, partial, max_blocks, out_count, stream
+    "rpt_sphere_pierced": [_P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P],
     # queries, nq, points, starts, nx, ny, nz, ox, oy, oz, h, inv_h, k,
     # out_idx, out_d2, stream
     "rpt_knn_grid": [_P, _I, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _I, _P, _P, _P],

@@ -2,9 +2,10 @@
 the photon-mapping camera pass — port of `rpt_tpu/renderer.py`
 (`rpt/src/renderer.rs:23-184`).
 
-Same fields and defaults as the reference (renderer.rs:60-75), plus an
-explicit ``device``: ``Renderer(scene, camera, device="cuda")`` raises
-where CUDA is absent; it never carries on on the CPU. Both passes trace
+Same fields and defaults as the reference (renderer.rs:60-75), plus a
+``device``, ``"cuda"`` unless the caller asks for ``"cpu"``:
+``Renderer(scene, camera)`` raises where CUDA is absent; it never carries
+on on the CPU. Both passes trace
 one wavefront per pixel sample in a Python loop over absolute sample
 indices, so per-sample RNG streams match the JAX package's.
 
@@ -53,7 +54,7 @@ class Renderer:
     watts_: float = 100.0
     seed_: int = 0
     media_max_depth_: int = 32
-    device: object = field(default="cpu", kw_only=True)
+    device: object = field(default="cuda", kw_only=True)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)

@@ -85,7 +85,7 @@ class Scene:
         else:
             raise TypeError(f"Cannot add {type(node).__name__} to scene")
 
-    def compile(self, device="cpu") -> "CompiledScene":
+    def compile(self, device="cuda") -> "CompiledScene":
         return compile_scene(self, device)
 
 
@@ -134,10 +134,10 @@ def _prim_set(entries, device) -> PrimSet:
     )
 
 
-def compile_scene(scene: Scene, device="cpu") -> CompiledScene:
+def compile_scene(scene: Scene, device="cuda") -> CompiledScene:
     """Lower ``scene`` to tables on ``device`` (`rpt_tpu/scene.py:144-311`,
-    without the cluster tables of the TPU tile path). A CUDA device with
-    no usable card raises."""
+    without the cluster tables of the TPU tile path): the card unless the
+    caller asks for ``"cpu"``. A CUDA device with no usable card raises."""
     device = resolve_device(device)
     materials: list[Material] = []
     mat_ids: dict[Material, int] = {}

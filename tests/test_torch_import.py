@@ -13,6 +13,12 @@ import torch
 import rpt_tpu_torch as tr
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
+sys.path.insert(0, os.path.join(ROOT, "examples"))
+
+import torch_cornell  # noqa: E402
+import torch_dragon  # noqa: E402
+import torch_sphere  # noqa: E402
+import torch_volumetric_beamphoton_lampshade as lampshade  # noqa: E402
 
 
 def _modules():
@@ -54,8 +60,40 @@ def test_cuda_device_raises_without_a_card():
         tr.Renderer(scene, tr.Camera(), device="cuda")
     with pytest.raises(RuntimeError, match="cuda"):
         tr.compile_scene(scene, "cuda")
+    # the card is the default of every entry point
+    with pytest.raises(RuntimeError, match="cuda"):
+        tr.Renderer(scene, tr.Camera())
+    with pytest.raises(RuntimeError, match="cuda"):
+        tr.compile_scene(scene)
+    with pytest.raises(RuntimeError, match="cuda"):
+        scene.compile()
+    # and of the examples' renderer helpers
+    for make in (torch_sphere.renderer, torch_cornell.renderer, lampshade.renderer,
+                 lambda: torch_dragon.renderer(scene=scene)):
+        with pytest.raises(RuntimeError, match="cuda"):
+            make()
     # the CPU is an explicit choice, and the renderer records it
     assert tr.Renderer(scene, tr.Camera(), device="cpu").device.type == "cpu"
+
+
+def test_sah_builder_source_is_the_ports_own_copy():
+    """The port compiles its own copy of the SAH builder, never a file
+    under `rpt_tpu/`: below its header comment the copy is the JAX
+    package's source byte for byte."""
+    from rpt_tpu_torch.accel import bvh
+
+    pkg = os.path.realpath(os.path.dirname(tr.__file__))
+    src = os.path.realpath(bvh.BVH_SOURCE)
+    assert os.path.commonpath([pkg, src]) == pkg and os.path.isfile(src)
+
+    def body(path):
+        with open(path, "rb") as f:
+            lines = f.read().split(b"\n")
+        first = next(i for i, line in enumerate(lines) if not line.startswith(b"//"))
+        return b"\n".join(lines[first:])
+
+    original = os.path.join(ROOT, "rpt_tpu", "native", "bvh_builder.cpp")
+    assert body(src) == body(original) and b'extern "C"' in body(src)
 
 
 def test_path_tracing_is_not_ported_yet():
@@ -64,7 +102,7 @@ def test_path_tracing_is_not_ported_yet():
     scene = tr.Scene()
     scene.add(tr.Object(tr.sphere()))
     scene.add(tr.Light.Point((50.0, 50.0, 50.0), (0.0, 5.0, 5.0)))
-    r = tr.Renderer(scene, tr.Camera()).width(8).height(8).num_samples(2)
+    r = tr.Renderer(scene, tr.Camera(), device="cpu").width(8).height(8).num_samples(2)
     img = r.render()
     assert img.shape == (8, 8, 3) and img.dtype == np.uint8 and img.max() > 0
     assert np.isfinite(r._last_buffer.raw()).all()

@@ -19,7 +19,10 @@ from rpt_tpu_torch.intersect import BVHTables
 from rpt_tpu_torch.ops.bvh_traverse import (
     bvh_any_hit, bvh_any_hit_plain, bvh_closest_hit, bvh_closest_hit_plain,
 )
-from rpt_tpu_torch.ops.sphere_sweep import pack_spheres_transposed, sphere_sweep, sphere_sweep_plain
+from rpt_tpu_torch.ops.sphere_sweep import (
+    build_sphere_table, pack_spheres_transposed, pierced_count, pierced_count_plain, sphere_sweep,
+    sphere_sweep_plain,
+)
 
 
 def _random_mesh(n_tris, seed, device="cpu"):
@@ -84,12 +87,33 @@ def test_wrappers_reject_bad_inputs():
         bvh_any_hit(BVHTables(bvh.nodes, bvh.leaves, bvh.shade, 72), o, d, 0.0, t)
 
 
+def _clustered_case(rng, p, n, t):
+    """``p`` small spheres in 40 tight clusters (the photon cloud's shape;
+    5% zero radii), and ``n`` rays in coherent bundles of 256, as camera
+    rays come in Morton pixel order: each bundle leaves one point towards
+    one cluster, half of its rays stopping on the way."""
+    hubs = rng.uniform(0, 100, (40, 3))
+    centres = hubs[rng.integers(0, 40, p)] + rng.normal(0, 1.5, (p, 3))
+    radius = np.where(rng.random(p) < 0.05, 0.0, rng.uniform(0.2, 1.5, p))
+    sph = pack_spheres_transposed(t(centres), t(radius), t(rng.normal(size=(p, 3))),
+                                  t(rng.uniform(0, 1, (p, 3))))
+    bundle = np.arange(n) // 256
+    o = rng.uniform(-20, 120, (bundle[-1] + 1, 3))[bundle] + rng.normal(0, 0.5, (n, 3))
+    d = hubs[rng.integers(0, 40, bundle[-1] + 1)][bundle] + rng.normal(0, 2.0, (n, 3)) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    hit_t = np.where(rng.random(n) < 0.5, rng.uniform(5, 150, n), np.inf)
+    return sph, t(o), t(d), t(hit_t)
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
     """K-sweep and K-knn against their plain versions on the card, at
-    ragged sizes (N and P no multiple of a block); K-knn also for queries
-    outside the grid and for both k of the photon path. Each wrapper
-    launches its kernel once per call."""
+    ragged sizes (N and P no multiple of a block); K-sweep also on a
+    clustered cloud whose Morton tiles the cull mostly drops, with the
+    pierced-pair count of every ray equal to the plain count, two calls
+    bit-identical, and a bare (FIELDS, P) table refused; K-knn also for
+    queries outside the grid and for both k of the photon path. Each
+    wrapper launches its kernel once per call."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
     dev = "cuda"
@@ -105,12 +129,33 @@ def test_kernels_match_plain_on_card():
     sph = pack_spheres_transposed(t(rng.uniform(0, 100, (p, 3))), t(rng.uniform(5, 10, p)),
                                   t(rng.normal(size=(p, 3))), t(rng.uniform(0, 1, (p, 3))))
     args = (t(rng.uniform(0, 100, (n, 3))), t(d), t(hit_t), sph, 1e-3, t([0.5, 0.6, 0.7]))
+    with pytest.raises(ValueError, match="SphereTable"):
+        sphere_sweep(*args, n_spheres=p, phase_const=0.1)
+    table = build_sphere_table(sph, p)
     before = sphere_sweep.launches
-    got = sphere_sweep(*args, n_spheres=p, phase_const=0.1)
+    got = sphere_sweep(*args[:3], table, *args[4:], n_spheres=p, phase_const=0.1)
     assert sphere_sweep.launches == before + 1
     ref = sphere_sweep_plain(*args, n_spheres=p, phase_const=0.1)
     assert (ref.abs().sum(1) > 0).float().mean() > 0.2  # rays do pierce spheres
     torch.testing.assert_close(got, ref, rtol=1e-3, atol=1e-6 * float(ref.abs().max()))
+
+    # clustered, Morton-tiled: the cull drops most tiles and no pierced
+    # pair
+    sphc, oc, dc, thc = _clustered_case(rng, 20011, 3000, t)
+    table = build_sphere_table(sphc, 20011)
+    argc = (oc, dc, thc, table, 1.1e-3, t([0.5, 0.6, 0.7]))
+    got = sphere_sweep(*argc, n_spheres=20011, phase_const=0.08)
+    again = sphere_sweep(*argc, n_spheres=20011, phase_const=0.08)
+    assert torch.equal(got, again)
+    ref = sphere_sweep_plain(oc, dc, thc, sphc, *argc[4:], n_spheres=20011, phase_const=0.08)
+    assert (ref.abs().sum(1) > 0).float().mean() > 0.3
+    torch.testing.assert_close(got, ref, rtol=1e-3, atol=1e-6 * float(ref.abs().max()))
+    before = sphere_sweep.launches
+    count, kept = pierced_count(oc, dc, thc, table)
+    assert sphere_sweep.launches == before  # verification launches are not counted
+    assert torch.equal(count.long(), pierced_count_plain(oc, dc, thc, sphc, 20011))
+    assert int(count.sum()) > 10_000 and kept.shape == (12,)
+    assert int(kept.sum()) < 0.5 * kept.numel() * table.n_tiles
 
     grid = build_grid(t(rng.normal(0, 1, (20000, 3))))
     q = t(rng.normal(0, 3, (2051, 3)))  # many outside the grid

@@ -213,6 +213,6 @@ def test_image_does_not_depend_on_chunking_or_sample_split(monkeypatch):
 def test_medium_scene_raises():
     scene = torch_sphere.build_scene()
     scene.add(tr.Medium.homogeneous_isotropic(1e-4, 1e-3))
-    r = tr.Renderer(scene, torch_sphere.camera()).width(8).height(8)
+    r = tr.Renderer(scene, torch_sphere.camera(), device="cpu").width(8).height(8)
     with pytest.raises(NotImplementedError, match="trace_volumetric"):
         r.render()
