@@ -2,13 +2,15 @@
 
     python3 chip_smoke.py [--spp N]
 
-Builds the four hand-written CUDA kernels from `rpt_tpu_torch/csrc` (one
-nvcc per source, in parallel) and drives both ported paths end to end:
+Builds the hand-written CUDA kernels from `rpt_tpu_torch/csrc` (one nvcc
+per source, in parallel) and drives both ported paths end to end:
 
 - the point-photon x beam-query path at the lampshade example's own
-  parameters; it launches K-sweep (once per camera wavefront) and K-knn,
+  parameters; it launches K-sweep (once per camera wavefront) and K-knn
+  (one self-query launch for the photon radii, one gather per wavefront),
   which are then held against their plain PyTorch versions on the
-  render's real tables (K-sweep also on a ragged random case and on far
+  render's real tables (K-knn's radius pass on 4096 random photons and
+  the 1024 of largest radius; K-sweep also on a ragged random case and on far
   small spheres, where float32 cancellation matters: the estimate, bit
   equality across two calls, the pierced pairs of every ray, and the
   tiles its cull keeps), and a small render is checked against its
@@ -18,6 +20,10 @@ nvcc per source, in parallel) and drives both ported paths end to end:
   hit) and K2 (any hit), which are then held against their plain versions
   on the render's own camera, bounce and shadow wavefronts, and the
   sphere and Cornell renders are checked against their golden images.
+
+The counting variants of K-knn, K1 and K2 print what a query or a ray
+costs (levels, cells and candidates; steps, leaf slots and the warps'
+live-lane share).
 
 Every phase prints its lines; any failure raises and exits non-zero. The
 launch counts of each path are set to 0 just before it and read just
@@ -100,20 +106,35 @@ def phase_build():
     paths = ", ".join(os.path.relpath(p, ROOT) for p in lib.paths)
     print(f"[build] {paths} in {lib.build_seconds:.2f} s; "
           f"ptxas: {' | '.join(usage) if usage else 'cached'}")
+    # K-knn's kernels for k = 10 and k = 20 (the query kernel's one list
+    # across a warp's lanes, the self-query's list per lane) keep their
+    # top-k in registers: ptxas must report no stack frame and no spill
+    lines = lib.log.splitlines()
+    frames = [lines[i + 2].strip() for i, line in enumerate(lines[:-2])
+              if "Compiling entry function" in line and "Lb0E" in line and "LocalTopK" not in line
+              and ("RegTopK" in line or "WarpList" in line)]
+    local = [f for f in frames if not f.startswith("0 bytes stack frame, 0 bytes spill stores, "
+                                                   "0 bytes spill loads")]
+    print(f"[build] K-knn kernels with the list in registers: {len(frames)}, of which with "
+          f"local memory: {len(local)} {local}")
+    if usage and (len(frames) != 3 or local):
+        raise RuntimeError("a K-knn kernel for k = 10 or k = 20 uses local memory")
 
 
 def phase_render(spp: int):
     sys.path.insert(0, os.path.join(ROOT, "examples"))
     import torch_volumetric_beamphoton_lampshade as ex
-    from rpt_tpu_torch.accel.knn import knn_query
+    from rpt_tpu_torch.accel.knn import knn_query, knn_radius
     from rpt_tpu_torch.ops.sphere_sweep import sphere_sweep
     from rpt_tpu_torch.renderer import PIXEL_CHUNK
 
     r = ex.renderer("cuda", sample=spp, seed=0)
     sphere_sweep.launches = 0
     knn_query.launches = 0
+    knn_radius.launches = 0
     img = r.photon_point_query_beam_render(ex.photons)
-    launches = {"sphere_sweep": sphere_sweep.launches, "knn_query": knn_query.launches}
+    launches = {"sphere_sweep": sphere_sweep.launches, "knn_query": knn_query.launches,
+                "knn_radius": knn_radius.launches}
     s, c = r.phase_seconds, r.photon_counts
     finite = bool(np.isfinite(r._last_buffer.raw()).all())
     note = "" if spp == ex.sample else f" (spp lowered from {ex.sample} to {spp})"
@@ -129,6 +150,8 @@ def phase_render(spp: int):
     if launches["sphere_sweep"] != spp * -(-r.width_ * r.height_ // PIXEL_CHUNK):
         raise RuntimeError(f"K-sweep launched {launches['sphere_sweep']} times for {spp} "
                            "samples, not once per wavefront")
+    if launches["knn_radius"] != 1:
+        raise RuntimeError(f"the radius pass took {launches['knn_radius']} launches, not one")
     return r, ex, launches
 
 
@@ -325,8 +348,75 @@ def _knn_compare(grid, q, k):
     return same, exact, err, idx_ok
 
 
+def _quantiles(x):
+    """'median a, p99 b, max c' of a tensor of counts."""
+    x = x.float().flatten()
+    return (f"median {float(x.median()):.0f}, p99 {float(torch.quantile(x, 0.99)):.0f}, "
+            f"max {float(x.max()):.0f}")
+
+
+def _top_share(x, share: float = 0.001) -> float:
+    """The part of ``x``'s sum that its largest ``share`` of entries hold."""
+    x = x.double().flatten()
+    top = torch.topk(x, max(1, int(share * x.numel()))).values
+    return float(top.sum() / x.sum().clamp(min=1.0))
+
+
+def _radius_pass(volume, k):
+    """K-knn's self-query over the volume cloud: one timed launch for all
+    points against its bound; the k-th d^2 held to `knn_plain` on 4096
+    random points and the 1024 of largest radius (bit-equal on >= 99.9% of
+    rows, rtol 1e-6 on all); the counting variant's distributions, and what
+    a walk of Chebyshev rings over a uniform grid sized from the bounding
+    box (about two cells a point, the earlier design) would step for the
+    same radii."""
+    from rpt_tpu_torch.accel.knn import knn_plain, knn_radius, knn_radius_counts
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    d2 = knn_radius(volume, k)
+    ms = _time_ms(lambda: knn_radius(volume, k), 5)
+    rows = torch.cat([torch.randint(0, volume.n, (4096,), device="cuda", generator=g),
+                      torch.topk(d2, min(1024, volume.n)).indices])
+    (_, ref, valid), plain_ms = _events_ms(lambda: knn_plain(volume.points, volume.points[rows],
+                                                             k))
+    ref = torch.where(valid, ref, 0.0).max(dim=1).values
+    exact = float((d2[rows] == ref).float().mean())
+    close = bool(torch.isclose(d2[rows], ref, rtol=1e-6, atol=0.0).all())
+    # every point and its cell code read once, one f32 a point written; at
+    # least 8 operations for each of a point's k distances
+    bound_ms, bound_by = _bound(_nbytes(volume.rows, volume.codes, d2), volume.n * k * 8)
+    print(f"[K-knn] radius pass: {volume.n} volume photons, k={k}, a cube of side "
+          f"{volume.h * 65536:.1f}, 1 launch: kernel {ms:.3f} ms, bound "
+          f"{bound_ms * 1e3:.1f} us ({bound_by}), {ms / bound_ms:.1f}x; k-th d^2 bit-equal to "
+          f"brute force on {exact:.5f} of {rows.numel()} rows (4096 random + the 1024 of "
+          f"largest radius), all within rtol 1e-6: {close}; plain {plain_ms:.3f} ms for those "
+          f"rows")
+    if exact < KNN_ROW_AGREEMENT or not close:
+        raise RuntimeError(f"K-knn's radius pass agrees with brute force on {exact:.5f} of rows, "
+                           f"all close {close}")
+    c = knn_radius_counts(volume, k)
+    print(f"[K-knn] radius pass counts: candidates a point {_quantiles(c[:, 2])} (the heaviest "
+          f"0.1% of points test {_top_share(c[:, 2]):.4f} of all candidates); cells "
+          f"{_quantiles(c[:, 1])}; points a unit mean {float(c[:, 3].float().mean()):.1f}; "
+          f"points whose unit's certificate failed {float((c[:, 0] > 1).float().mean()):.6f}, "
+          f"levels {_quantiles(c[:, 0])}")
+    lo, hi = volume.points.min(0).values, volume.points.max(0).values
+    h_box = float(((hi - lo).clamp(min=1e-6).prod() / (2 * volume.n)) ** (1.0 / 3.0))
+    rings = torch.floor(torch.sqrt(d2) / h_box) + 1
+    columns = (rings + 1) * (2 * rings + 1) * (2 * rings + 3) / 3
+    chunk_max = torch.stack([columns[s : s + (1 << 18)].max()
+                             for s in range(0, volume.n, 1 << 18)])
+    print(f"[K-knn] a ring walk over a uniform grid of cell {h_box:.3f} (two cells a point of "
+          f"the bounding box) would take, from the same radii: rings {_quantiles(rings)}; "
+          f"columns {_quantiles(columns)}; the heaviest 0.1% of points {_top_share(columns):.4f} "
+          f"of all column steps; the slowest point of each chunk of 2^18 "
+          f"{[int(v) for v in chunk_max.tolist()]} columns against a mean of "
+          f"{float(columns.mean()):.0f}")
+    return {"radius_ms": ms, "radius_bound_ms": bound_ms, "radius_plain_ms_5120_rows": plain_ms}
+
+
 def phase_knn(r):
-    from rpt_tpu_torch.accel.knn import build_grid, knn_plain, knn_query
+    from rpt_tpu_torch.accel.knn import build_grid, knn_plain, knn_query, knn_query_counts
     from rpt_tpu_torch.integrators.photon import RADIUS_K
     from rpt_tpu_torch.intersect import closest_hit
     from rpt_tpu_torch.renderer import camera_rays
@@ -336,6 +426,7 @@ def phase_knn(r):
     g = torch.Generator(device="cuda").manual_seed(1)
     surface = pmap.surface_grid
     volume = build_grid(pmap.spheres.spheres_t[0:3, :pmap.spheres.n_spheres].T.contiguous())
+    radius = _radius_pass(volume, RADIUS_K)
     # the camera pass's queries: sample 0's surface gather points, as
     # surface_estimate forms them (the origin of space, outside the grid,
     # for a ray that hits nothing)
@@ -359,24 +450,28 @@ def phase_knn(r):
         worst, err, idx_ok = min(worst, same), max(err, e), idx_ok and ok
         ms = _time_ms(lambda: knn_query(grid, q, k), 5)
         plain_ms = _time_ms(lambda: knn_plain(grid.points, q, k), 1)
-        print(f"[K-knn] {name} x {grid.n} points, k={k}: rows agreeing {same:.5f} "
-              f"(bit-equal {exact:.5f}), max abs err {e:.3e}, indices consistent {ok}; "
-              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        c = knn_query_counts(grid, q, k)
+        print(f"[K-knn] {name} x {grid.n} points, k={k}: rows agreeing "
+              f"{same:.5f} (bit-equal {exact:.5f}), max abs err {e:.3e}, indices consistent "
+              f"{ok}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; counts: levels scanned "
+              f"{_quantiles(c[:, 0])}; cells {_quantiles(c[:, 1])}; candidates "
+              f"{_quantiles(c[:, 2])} (heaviest 0.1%: {_top_share(c[:, 2]):.4f} of all); start "
+              f"level {_quantiles(c[:, 3])}")
     if worst < KNN_ROW_AGREEMENT or not idx_ok:
         raise RuntimeError(f"K-knn agrees with brute force on only {worst:.5f} of rows, "
                            f"indices consistent {idx_ok}")
     # the reported times are the camera pass's (the last case); its bound:
-    # the grid's points and cell starts and the queries read once, the
-    # indices and distances written once; at least 8 operations for each of
-    # the k distances of a query
-    bound_ms, bound_by = _bound(_nbytes(grid.points, grid.starts, q) + q.shape[0] * k * 8,
+    # the grid's rows and cell codes and the queries read once, the indices
+    # and distances written once; at least 8 operations for each of the k
+    # distances of a query
+    bound_ms, bound_by = _bound(_nbytes(grid.rows, grid.codes, q) + q.shape[0] * k * 8,
                                 q.shape[0] * k * 8)
     print(f"[K-knn] camera pass bound {bound_ms * 1e3:.1f} us ({bound_by}); kernel "
           f"{ms / bound_ms:.1f}x its bound")
     return {"name": "knn_query", "route": "cuda", "source": "rpt_tpu_torch/csrc/knn.cu",
             "replaces": "rpt_tpu/accel/grid.py:605", "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None}
+            "library_ms": None, **radius}
 
 
 def phase_golden(ex):
@@ -504,6 +599,27 @@ def _traverse_bound(args, kwargs, outs):
     return _bound(_nbytes(*inputs, bvh.nodes, bvh.leaves, *outs), lanes * 20)
 
 
+def _traverse_counts(label, any_hit, args, kwargs):
+    """The counting variant of K1 or K2 on one wavefront: the lanes that
+    enter, steps and leaf slots per entering lane, and the live-lane share
+    (the steps the rays took over 32 x the longest ray of each warp, what
+    warps in lockstep spend): of the kernel's warps, which hold the packed
+    entering lanes where the call is gated, and of warps of 32 consecutive
+    lanes of the wavefront, as without packing."""
+    from rpt_tpu_torch.ops.bvh_traverse import traverse_counts
+
+    counts, live_share = traverse_counts(any_hit, *args, **kwargs)
+    steps, slots = counts[:, 0], counts[:, 1]
+    entered = steps > 0
+    warps = torch.nn.functional.pad(steps, (0, (-steps.numel()) % 32)).reshape(-1, 32)
+    lane_share = float(warps.sum() / (32 * warps.max(dim=1).values.sum()).clamp(min=1))
+    print(f"[{'K2' if any_hit else 'K1'}] {label} counts: {int(entered.sum())} of "
+          f"{steps.numel()} lanes enter; steps a ray {_quantiles(steps[entered])} (mean "
+          f"{float(steps[entered].float().mean()):.1f}); leaf slots {_quantiles(slots[entered])} "
+          f"(mean {float(slots[entered].float().mean()):.1f}); live-lane share of the kernel's "
+          f"warps {live_share:.4f}, of warps in lane order {lane_share:.4f}")
+
+
 def phase_traverse(r):
     """K1 on sample 0's camera and level-1 bounce wavefronts, K2 on its
     level-0 and level-1 batched shadow wavefronts (-1 limits included),
@@ -541,12 +657,15 @@ def phase_traverse(r):
               f"{share:.6f} ({int((~same).sum())} lanes differ); where tri agrees max abs err "
               f"t {errs['t']:.3e} u {errs['u']:.3e} v {errs['v']:.3e} w {errs['w']:.3e}, "
               f"t ok {t_ok}, u/v/w ok {uvw_ok}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        _traverse_counts(f"{label} wavefront", False, args, kwargs)
         worst = min(worst, share)
         k1["max_abs_err"] = max(k1["max_abs_err"], *errs.values())
         if label == "camera":
             k1["ms"], k1["plain_ms"] = ms, plain_ms
             k1["bound_ms"], k1["bound_by"] = _traverse_bound(args, kwargs, got)
             k1["library_ms"] = None
+        else:
+            k1["bounce_ms"], k1["bounce_plain_ms"] = ms, plain_ms
     entries.append(k1)
 
     # level 0's shadow rays leave the convex-ish mesh unoccluded; level 1's
@@ -568,6 +687,7 @@ def phase_traverse(r):
               f"{float(ref.float().mean()):.4f} occluded): flag equal on {share:.6f} "
               f"({int((got != ref).sum())} lanes differ); kernel {ms:.3f} ms, plain "
               f"{plain_ms:.3f} ms")
+        _traverse_counts(f"level-{level} batched shadow wavefront", True, args, kwargs)
         worst = min(worst, share)
         k2["max_abs_err"] = max(k2["max_abs_err"],
                                 float((got.float() - ref.float()).abs().max()))
@@ -575,6 +695,8 @@ def phase_traverse(r):
             k2["ms"], k2["plain_ms"] = ms, plain_ms
             k2["bound_ms"], k2["bound_by"] = _traverse_bound(args, kwargs, (got,))
             k2["library_ms"] = None
+        else:
+            k2["level0_ms"], k2["level0_plain_ms"] = ms, plain_ms
     entries.append(k2)
     if worst < TRAVERSE_AGREEMENT:
         raise RuntimeError(f"K1/K2 agree with their plain versions on only {worst:.6f} "
@@ -626,6 +748,7 @@ def main():
     kernels = [phase_sweep(r, ex), phase_knn(r)]
     for k in kernels:
         k["launches"] = launches[k["name"]]
+    kernels[1]["radius_launches"] = launches["knn_radius"]
     phase_golden(ex)
     r_dragon, path_launches = phase_dragon()
     traverse = phase_traverse(r_dragon)

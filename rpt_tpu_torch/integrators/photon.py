@@ -37,7 +37,7 @@ from dataclasses import dataclass
 import torch
 
 from .. import sampling
-from ..accel.knn import PhotonGrid, build_grid, knn_query
+from ..accel.knn import PhotonGrid, build_grid, knn_query, knn_radius
 from ..dtypes import DTYPE, INF
 from ..intersect import closest_hit, occluded
 from ..lights import sample_shape
@@ -235,14 +235,10 @@ def build_photon_map(scene, tables, surface_rows, volume_rows, kind: str,
     return PhotonMapData(kind, s_grid, surface, spheres)
 
 
-def _knn_radius_device(grid: PhotonGrid, k: int, chunk: int = 1 << 18) -> torch.Tensor:
+def _knn_radius_device(grid: PhotonGrid, k: int) -> torch.Tensor:
     """Per photon (grid order), the distance to its k-th nearest neighbour,
     itself included (`rpt_tpu/integrators/photon.py:459`)."""
-    out = torch.zeros(grid.n, dtype=DTYPE, device=grid.points.device)
-    for s in range(0, grid.n, chunk):
-        _, d2, valid = knn_query(grid, grid.points[s : s + chunk], k)
-        out[s : s + chunk] = torch.sqrt(torch.where(valid, d2, 0.0).max(dim=1).values)
-    return out
+    return torch.sqrt(knn_radius(grid, k))
 
 
 # ---------------------------------------------------------------------------

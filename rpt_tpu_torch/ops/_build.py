@@ -49,14 +49,18 @@ _SIGNATURES = {
     # ray_o, ray_d, hit_t, n, records, bounds, n_tiles, keep, lists,
     # counts, partial, max_blocks, out_count, stream
     "rpt_sphere_pierced": [_P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P],
-    # queries, nq, points, starts, nx, ny, nz, ox, oy, oz, h, inv_h, k,
-    # out_idx, out_d2, stream
-    "rpt_knn_grid": [_P, _I, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _I, _P, _P, _P],
+    # rows, codes, n, ox, oy, oz, h, inv_h, slack, queries, nq, k, want,
+    # out_idx, out_d2, counts, stream
+    "rpt_knn_query": [_P, _P, _I, _F, _F, _F, _F, _F, _F, _P, _I, _I, _I, _P, _P, _P, _P],
+    # rows, codes, n, ox, oy, oz, h, inv_h, slack, k, want, out_d2, counts,
+    # stream
+    "rpt_knn_radius": [_P, _P, _I, _F, _F, _F, _F, _F, _F, _I, _I, _P, _P, _P],
     # origin, dir, n, nodes, leaves, t_min, limit, best_time, active, out_t,
-    # out_tri, out_u, out_v, out_w, stream
-    "rpt_bvh_closest_hit": [_P, _P, _I, _P, _P, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P],
-    # origin, dir, n, nodes, leaves, t_min, limit, active, out_hit, stream
-    "rpt_bvh_any_hit": [_P, _P, _I, _P, _P, _F, _P, _P, _P, _P],
+    # out_tri, out_u, out_v, out_w, ray_counts, warp_counts, stream
+    "rpt_bvh_closest_hit": [_P, _P, _I, _P, _P, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    # origin, dir, n, nodes, leaves, t_min, limit, active, out_hit,
+    # ray_counts, warp_counts, stream
+    "rpt_bvh_any_hit": [_P, _P, _I, _P, _P, _F, _P, _P, _P, _P, _P, _P],
 }
 
 

@@ -4,12 +4,15 @@ The JAX package traverses meshes with XLA programs, not Pallas:
 `rpt_tpu/intersect.py::_traverse` (:457) is the exact spec, and the TPU
 engines `tiled.py` and `deferred.py` reproduce its results. The port's
 plain version is `rpt_tpu_torch.intersect._traverse`, a step loop in torch
-ops; the kernels are `csrc/bvh_traverse.cu`, one thread per ray.
+ops; the kernels are `csrc/bvh_traverse.cu`: a block packs the lanes that
+enter into a list and its threads take one ray each.
 
 `bvh_closest_hit` and `bvh_any_hit` are the wrappers: for tensors on the
 CPU they run the plain version; for CUDA tensors they launch the kernel or
 raise. ``bvh_closest_hit.launches`` and ``bvh_any_hit.launches`` count
-kernel launches.
+kernel launches. `traverse_counts` launches the counting variants (steps
+and leaf slots per lane, the warps' live-lane share) for the smoke run and
+the profile tool.
 
 Rays arrive as (N, 3) float32 origins and directions; ``limit``,
 ``best_time`` are (N,) float32 and ``active`` an optional (N,) bool mask.
@@ -48,8 +51,8 @@ def _check_args(name, bvh, origin, direction, lanes: dict):
             raise ValueError(f"{name}: {t.shape[0]} {arg} rows; indices need < 2^24")
         if t.device != dev:
             raise ValueError(f"{name}: bvh.{arg} is on {t.device}, bvh.nodes on {dev}")
-    if bvh.nodes.data_ptr() % 16:
-        raise ValueError(f"{name}: bvh.nodes must be 16-byte aligned")
+    if bvh.nodes.data_ptr() % 16 or bvh.leaves.data_ptr() % 16:
+        raise ValueError(f"{name}: bvh.nodes and bvh.leaves must be 16-byte aligned")
     if bvh.stack_depth > STACK:
         raise ValueError(f"{name}: the tree needs a stack of {bvh.stack_depth}, "
                          f"the kernel has {STACK}")
@@ -83,6 +86,50 @@ def _device(name, origin):
         raise ValueError(f"{name}: unsupported device {origin.device}")
 
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _count_buffers(n: int, dev, count: bool):
+    """The counting variant's zeroed outputs: per-lane (steps, leaf slots)
+    and the warps' two sums; ``(None, None)`` without ``count``."""
+    if not count:
+        return None, None
+    return (torch.zeros((n, 2), dtype=torch.int32, device=dev),
+            torch.zeros(2, dtype=torch.int64, device=dev))
+
+
+def _launch_closest(bvh, origin, direction, t_min, best_time, limit=None, active=None,
+                    count: bool = False):
+    """Launch K1 (its counting variant with ``count``): the status, the
+    five outputs and ``(ray_counts, warp_counts)``."""
+    n, dev = origin.shape[0], origin.device
+    out_t = torch.empty(n, dtype=DTYPE, device=dev)
+    out_tri = torch.empty(n, dtype=torch.int32, device=dev)
+    out_u, out_v, out_w = (torch.empty(n, dtype=DTYPE, device=dev) for _ in range(3))
+    counts = _count_buffers(n, dev, count)
+    code = _build.library().lib.rpt_bvh_closest_hit(
+        origin.data_ptr(), direction.data_ptr(), n, bvh.nodes.data_ptr(), bvh.leaves.data_ptr(),
+        float(t_min), _ptr(limit), best_time.data_ptr(), _ptr(active), out_t.data_ptr(),
+        out_tri.data_ptr(), out_u.data_ptr(), out_v.data_ptr(), out_w.data_ptr(),
+        _ptr(counts[0]), _ptr(counts[1]), _build.stream_of(origin),
+    )
+    return code, (out_t, out_tri, out_u, out_v, out_w), counts
+
+
+def _launch_any(bvh, origin, direction, t_min, limit, active=None, count: bool = False):
+    """Launch K2 (its counting variant with ``count``)."""
+    n, dev = origin.shape[0], origin.device
+    out = torch.empty(n, dtype=torch.bool, device=dev)
+    counts = _count_buffers(n, dev, count)
+    code = _build.library().lib.rpt_bvh_any_hit(
+        origin.data_ptr(), direction.data_ptr(), n, bvh.nodes.data_ptr(), bvh.leaves.data_ptr(),
+        float(t_min), limit.data_ptr(), _ptr(active), out.data_ptr(), _ptr(counts[0]),
+        _ptr(counts[1]), _build.stream_of(origin),
+    )
+    return code, out, counts
+
+
 def bvh_closest_hit(bvh, origin, direction, t_min: float, best_time, limit=None, active=None):
     """Nearest triangle per ray with t in [t_min, min(best_time, limit)):
     ``(t, tri, u, v, w)``, (N,) float32 / int32 / float32 x3; where there
@@ -94,20 +141,10 @@ def bvh_closest_hit(bvh, origin, direction, t_min: float, best_time, limit=None,
     if origin.device.type == "cpu":
         return bvh_closest_hit_plain(bvh, origin, direction, t_min, best_time, limit, active)
     _device("bvh_closest_hit", origin)
-    n = origin.shape[0]
-    out_t = torch.empty(n, dtype=DTYPE, device=origin.device)
-    out_tri = torch.empty(n, dtype=torch.int32, device=origin.device)
-    out_u, out_v, out_w = (torch.empty(n, dtype=DTYPE, device=origin.device) for _ in range(3))
-    lib = _build.library().lib
-    code = lib.rpt_bvh_closest_hit(
-        origin.data_ptr(), direction.data_ptr(), n, bvh.nodes.data_ptr(), bvh.leaves.data_ptr(),
-        float(t_min), None if limit is None else limit.data_ptr(), best_time.data_ptr(),
-        None if active is None else active.data_ptr(), out_t.data_ptr(), out_tri.data_ptr(),
-        out_u.data_ptr(), out_v.data_ptr(), out_w.data_ptr(), _build.stream_of(origin),
-    )
+    code, out, _ = _launch_closest(bvh, origin, direction, t_min, best_time, limit, active)
     bvh_closest_hit.launches += 1
     _build.check(code, "bvh_closest_hit")
-    return out_t, out_tri, out_u, out_v, out_w
+    return out
 
 
 def bvh_any_hit(bvh, origin, direction, t_min: float, limit, active=None):
@@ -119,17 +156,27 @@ def bvh_any_hit(bvh, origin, direction, t_min: float, limit, active=None):
     if origin.device.type == "cpu":
         return bvh_any_hit_plain(bvh, origin, direction, t_min, limit, active)
     _device("bvh_any_hit", origin)
-    n = origin.shape[0]
-    out = torch.empty(n, dtype=torch.bool, device=origin.device)
-    lib = _build.library().lib
-    code = lib.rpt_bvh_any_hit(
-        origin.data_ptr(), direction.data_ptr(), n, bvh.nodes.data_ptr(), bvh.leaves.data_ptr(),
-        float(t_min), limit.data_ptr(), None if active is None else active.data_ptr(),
-        out.data_ptr(), _build.stream_of(origin),
-    )
+    code, out, _ = _launch_any(bvh, origin, direction, t_min, limit, active)
     bvh_any_hit.launches += 1
     _build.check(code, "bvh_any_hit")
     return out
+
+
+def traverse_counts(any_hit: bool, bvh, origin, direction, t_min: float, *args, **kwargs):
+    """The counting variant of K1 (``any_hit`` False; the arguments of
+    `bvh_closest_hit`) or K2 (True; those of `bvh_any_hit`), on the card:
+    ``(ray_counts, live_share)``. ``ray_counts`` is (N, 2) int32, the steps
+    and the leaf slots tested per lane (0 for a lane that never entered);
+    ``live_share`` is the steps the rays took over what the kernel's warps
+    spent in lockstep (32 lanes x their longest ray). Counts no launch."""
+    name = "bvh_any_hit" if any_hit else "bvh_closest_hit"
+    _device(name, origin)
+    launch = _launch_any if any_hit else _launch_closest
+    code, _, (ray_counts, warp_counts) = launch(bvh, origin, direction, t_min, *args, **kwargs,
+                                                count=True)
+    _build.check(code, name + " (counting)")
+    live, lockstep = warp_counts.tolist()
+    return ray_counts, live / max(lockstep, 1)
 
 
 bvh_closest_hit.launches = 0

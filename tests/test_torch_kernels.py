@@ -1,6 +1,6 @@
-"""The port's kernel wrappers without JAX: the device grid build, input
-checks, and K-sweep, K-knn, K1 and K2 against their plain versions on the
-card.
+"""The port's kernel wrappers without JAX: the device grid build and the
+self-query's unit cut, input checks, and K-sweep, K-knn, K1 and K2 against
+their plain versions on the card.
 
 This file imports neither jax nor rpt_tpu, so it also runs on a GPU
 machine without JAX (`tests/conftest.py` imports jax, hence
@@ -14,10 +14,13 @@ import pytest
 import torch
 
 from rpt_tpu_torch.accel.bvh import build_bvh, pack_bvh
-from rpt_tpu_torch.accel.knn import build_grid, knn_plain, knn_query
+from rpt_tpu_torch.accel.knn import (
+    LEVELS, UNIT, build_grid, cell_coords, cell_runs, knn_plain, knn_query, knn_query_counts,
+    knn_radius, knn_radius_counts, knn_radius_plain, morton_code, radius_units_plain,
+)
 from rpt_tpu_torch.intersect import BVHTables
 from rpt_tpu_torch.ops.bvh_traverse import (
-    bvh_any_hit, bvh_any_hit_plain, bvh_closest_hit, bvh_closest_hit_plain,
+    bvh_any_hit, bvh_any_hit_plain, bvh_closest_hit, bvh_closest_hit_plain, traverse_counts,
 )
 from rpt_tpu_torch.ops.sphere_sweep import (
     build_sphere_table, pack_spheres_transposed, pierced_count, pierced_count_plain, sphere_sweep,
@@ -44,24 +47,90 @@ def test_knn_fewer_points_than_k():
     np.testing.assert_allclose(d2[0, :2].numpy(), [0.04, 0.64], rtol=1e-6)
 
 
-def test_grid_build_is_consistent():
-    """Every point lies in its cell run, the order is a permutation, and a
-    clustered cloud with strays stays within the cell budget."""
+def _strays_cloud():
+    """A dense cluster with strays around it, as a photon cloud's body in
+    its halo, and 40 coincident points (a crowded finest cell)."""
     rng = np.random.default_rng(11)
-    pts = np.concatenate([rng.normal(0.0, 0.05, (3000, 3)), rng.uniform(-3, 3, (200, 3))])
-    pts_t = torch.tensor(pts, dtype=torch.float32)
+    pts = np.concatenate([rng.normal(0.0, 0.05, (3000, 3)), rng.uniform(-3, 3, (200, 3)),
+                          np.full((40, 3), 0.25)])
+    return torch.tensor(pts, dtype=torch.float32)
+
+
+def test_grid_build_is_consistent():
+    """The order is a permutation, the codes ascend and are the Morton
+    codes of the points' finest cells, the rows are the padded points, and
+    at every level the cells' runs partition the array: a run per distinct
+    prefix, each starting where the last ended, each the union of its
+    children's."""
+    pts_t = _strays_cloud()
+    n = len(pts_t)
     grid = build_grid(pts_t)
-    assert sorted(grid.order.tolist()) == list(range(len(pts)))
+    assert sorted(grid.order.tolist()) == list(range(n))
     assert torch.equal(grid.points, pts_t[grid.order])
-    nx, ny, nz = grid.dims
-    o = torch.tensor(grid.origin)
-    c = torch.floor((grid.points - o) * (1.0 / grid.h)).long()
-    c = torch.minimum(c.clamp(min=0), torch.tensor(grid.dims) - 1)
-    cid = (c[:, 0] * ny + c[:, 1]) * nz + c[:, 2]
-    starts = grid.starts.long()
-    lane = torch.arange(len(pts))
-    assert bool(((starts[cid] <= lane) & (lane < starts[cid + 1])).all())
-    assert int(starts[-1]) == len(pts) and len(starts) == nx * ny * nz + 1
+    assert torch.equal(grid.rows[:, :3], grid.points) and not bool(grid.rows[:, 3].any())
+    assert bool((grid.codes[1:] >= grid.codes[:-1]).all())
+    assert torch.equal(grid.codes, morton_code(cell_coords(grid.points, grid.origin, grid.h)))
+    assert 0 <= int(grid.codes.min()) and int(grid.codes.max()) < 8 ** LEVELS
+    lane = torch.arange(n)
+    below = None
+    for level in range(LEVELS + 1):
+        prefix = grid.codes >> (3 * level)
+        start, count = cell_runs(grid, prefix, level)
+        assert bool(((start <= lane) & (lane < start + count)).all())
+        cells, sizes = torch.unique_consecutive(prefix, return_counts=True)
+        first, length = cell_runs(grid, cells, level)
+        assert torch.equal(length, sizes)
+        assert torch.equal(first, torch.cumsum(sizes, 0) - sizes)
+        if below is not None:  # a cell's run is its children's runs joined
+            child_cells, child_sizes = below
+            joined = torch.zeros(len(cells), dtype=torch.int64).index_add_(
+                0, torch.searchsorted(cells, child_cells >> 3), child_sizes)
+            assert torch.equal(joined, sizes)
+        below = (cells, sizes)
+    assert len(below[0]) == 1 and int(below[1][0]) == n  # the top level is one cell
+
+
+def test_radius_units_partition_the_points():
+    """The self-query's units (`radius_units_plain`, the kernel's cut in
+    torch ops): runs that partition the array, each of at most UNIT points
+    and all in one cell of its level, whose parent cell holds more than
+    UNIT (or the unit is a run of a crowded finest cell)."""
+    grid = build_grid(_strays_cloud())
+    start, count, level = radius_units_plain(grid)
+    lane = torch.arange(grid.n)
+    assert bool(((start <= lane) & (lane < start + count)).all())
+    heads = torch.unique(start)
+    assert int(count[heads].sum()) == grid.n and int(count.max()) <= UNIT
+    assert torch.equal(heads[1:], (heads + count[heads])[:-1])
+    crowded = cell_runs(grid, grid.codes, 0)[1] > UNIT
+    assert int(crowded.sum()) == 40 and bool((level[crowded] == 0).all())
+    for i in heads[~crowded[heads]].tolist():
+        lv = int(level[i])
+        members = grid.codes[i : i + int(count[i])] >> (3 * lv)
+        assert bool((members == members[0]).all())
+        assert int(cell_runs(grid, members[:1], lv)[1]) == int(count[i])
+        if lv < LEVELS:
+            assert int(cell_runs(grid, members[:1] >> 3, lv + 1)[1]) > UNIT
+    assert len(torch.unique(level)) >= 4  # the strays' units are coarser than the body's
+
+
+def test_knn_wrappers_on_empty_clouds_and_bad_k():
+    """An empty cloud builds, answers with no valid neighbour and an empty
+    radius list; k outside [1, MAX_K] is refused by both wrappers; on the
+    CPU neither wrapper launches anything."""
+    empty = build_grid(torch.zeros((0, 3)))
+    before = (knn_query.launches, knn_radius.launches)
+    idx, d2, valid = knn_query(empty, torch.zeros((3, 3)), 5)
+    assert idx.shape == d2.shape == valid.shape == (3, 5) and not bool(valid.any())
+    assert knn_radius(empty, 10).shape == (0,)
+    grid = build_grid(torch.rand((50, 3), generator=torch.Generator().manual_seed(0)))
+    assert knn_radius(grid, 3).shape == (50,) and bool((knn_radius(grid, 1) == 0).all())
+    for k in (0, 129):
+        with pytest.raises(ValueError):
+            knn_radius(grid, k)
+        with pytest.raises(ValueError):
+            knn_query(grid, torch.zeros((2, 3)), k)
+    assert (knn_query.launches, knn_radius.launches) == before
 
 
 def test_wrappers_reject_bad_inputs():
@@ -169,6 +238,53 @@ def test_kernels_match_plain_on_card():
         torch.testing.assert_close(recomputed, d2, rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.cuda
+def test_knn_kernels_match_plain_on_card():
+    """K-knn's query and self-query kernels against brute force on the
+    card: a dense body with far outliers and coincident points (crowded
+    cells are opened, units of every level, the crowded finest cell cut
+    into runs), queries in the body, on the outliers and far outside, for
+    the register k (10, 20), a k of the warp list (12) and one of the
+    local-memory lists (50); and a cloud of fewer than k points. Sorted
+    d^2 bit-equal (the same rounded operations), indices distinct and at
+    their distances; each wrapper launches once per call and the counting
+    variants count no launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    rng = np.random.default_rng(3)
+    pts = np.concatenate([rng.normal(0, 0.5, (60000, 3)), rng.uniform(-300, 300, (40, 3)),
+                          np.full((70, 3), 0.125)])
+    grid = build_grid(torch.tensor(pts, dtype=torch.float32, device="cuda"))
+    q = torch.cat([grid.points[torch.randint(0, grid.n, (1500,), device="cuda")],
+                   torch.tensor(pts[60000:60040], dtype=torch.float32, device="cuda"),
+                   torch.tensor(rng.uniform(-400, 400, (211, 3)), dtype=torch.float32,
+                                device="cuda")])
+    for k in (10, 20, 12, 50):
+        before = (knn_query.launches, knn_radius.launches)
+        idx, d2, valid = knn_query(grid, q, k)
+        radius = knn_radius(grid, k)
+        assert (knn_query.launches, knn_radius.launches) == (before[0] + 1, before[1] + 1)
+        _, d2p, _ = knn_plain(grid.points, q, k)
+        assert valid.all() and torch.equal(d2, d2p)
+        at = ((grid.points[idx] - q[:, None, :]) ** 2).sum(-1)
+        torch.testing.assert_close(at, d2, rtol=1e-5, atol=1e-6)
+        ranked = torch.sort(idx, dim=1).values
+        assert bool((ranked[:, 1:] != ranked[:, :-1]).all())
+        assert torch.equal(radius, knn_radius_plain(grid, k))
+    before = (knn_query.launches, knn_radius.launches)
+    counts = knn_query_counts(grid, q, 20)
+    assert counts.shape == (len(q), 4) and int(counts[:, 0].min()) >= 1
+    counts = knn_radius_counts(grid, 10)
+    assert counts.shape == (grid.n, 4) and int(counts[:, 3].max()) <= UNIT
+    assert (knn_query.launches, knn_radius.launches) == before
+
+    few = build_grid(torch.tensor(pts[:6], dtype=torch.float32, device="cuda"))
+    idx, d2, valid = knn_query(few, q[:50], 10)
+    _, d2p, validp = knn_plain(few.points, q[:50], 10)
+    assert torch.equal(d2, d2p) and torch.equal(valid, validp) and int(valid.sum()) == 300
+    assert torch.equal(knn_radius(few, 10), knn_radius_plain(few, 10))
+
+
 def test_plain_traversal_matches_brute_force():
     """The plain K1/K2 (the ordered traversal) against the dense test of
     every leaf row on a random soup: the same algebra on the same
@@ -248,3 +364,19 @@ def test_bvh_kernels_match_plain_on_card():
     assert 0.1 < occ_ref.float().mean() < 0.9
     assert (occ == occ_ref).float().mean() >= 0.999
     assert not bool(occ[~active | (limit < 0)].any())
+
+    # a wavefront with 90% of its lanes masked off: the blocks pack the
+    # few that enter, and every result lands on its own lane
+    sparse = torch.tensor(rng.random(n) < 0.1, device=dev)
+    got = bvh_closest_hit(bvh, o, d, t_min, best, active=sparse)
+    ref = bvh_closest_hit_plain(bvh, o, d, t_min, best, active=sparse)
+    assert (got[1] == ref[1]).float().mean() >= 0.999
+    assert bool((got[1][~sparse] == -1).all()) and torch.equal(got[0][~sparse], best[~sparse])
+    occ = bvh_any_hit(bvh, o, d, t_min, limit.abs(), active=sparse)
+    occ_ref = bvh_any_hit_plain(bvh, o, d, t_min, limit.abs(), active=sparse)
+    assert (occ == occ_ref).float().mean() >= 0.999 and not bool(occ[~sparse].any())
+    before = (bvh_closest_hit.launches, bvh_any_hit.launches)
+    counts, live_share = traverse_counts(True, bvh, o, d, t_min, limit.abs(), active=sparse)
+    assert (bvh_closest_hit.launches, bvh_any_hit.launches) == before
+    assert bool((counts[~sparse] == 0).all()) and bool((counts[sparse, 0] > 0).all())
+    assert 0.0 < live_share <= 1.0

@@ -1,14 +1,16 @@
 """The port's kernel modules on the CPU: the plain sphere sweep against the
 Pallas kernel (interpret mode), K-sweep's kernel-side table (Morton order,
 32-byte records, tile bounds) and the plain version of its cull, the k-NN
-against the JAX grid and numpy brute force, the device grid build, and the
-wrappers' device dispatch. The kernels themselves run on the card in
+against the JAX grid and numpy brute force, K-knn's walk of the grid's
+levels in torch ops against both, the radius pass against the JAX package's,
+the device grid build, and the wrappers' device dispatch. The kernels themselves run on the card in
 `test_torch_kernels.py`."""
 
 import math
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from rpt_tpu.accel.grid import build_photon_grid
@@ -16,7 +18,10 @@ from rpt_tpu.accel.grid import knn_query as jax_knn_query
 from rpt_tpu.ops.sphere_sweep import pack_spheres_transposed as jax_pack
 from rpt_tpu.ops.sphere_sweep import sphere_sweep as jax_sphere_sweep
 from rpt_tpu.vec import Vec3 as JVec3
-from rpt_tpu_torch.accel.knn import build_grid, knn_query
+from rpt_tpu.integrators.photon import _knn_radius_device as jax_knn_radius
+from rpt_tpu_torch.accel.knn import (
+    build_grid, knn_levels_plain, knn_plain, knn_query, knn_radius, knn_radius_plain,
+)
 from rpt_tpu_torch.ops.sphere_sweep import (
     SPHERE_CHUNK,
     TILE,
@@ -298,3 +303,88 @@ def test_knn_plain_exact_and_matches_jax_grid():
     _, jd2, _ = jax_knn_query(static, tabs, jnp.asarray(pos4), JVec3.from_array(queries), k)
     close = np.isclose(np.sort(np.asarray(jd2), 1), d2.numpy(), rtol=2e-3, atol=1e-4)
     assert close.mean() > 0.995
+
+
+def _knn_clouds():
+    """Four seeded clouds with their queries: ``name -> (points, queries)``."""
+    rng = np.random.default_rng(21)
+
+    def f32(a):
+        return np.asarray(a, np.float32)
+
+    planes = np.concatenate([
+        np.c_[rng.uniform(0, 10, (1500, 2)), np.zeros(1500)],
+        np.c_[np.full(1500, 3.0), rng.uniform(0, 10, (1500, 2))]])
+    cluster = np.concatenate([rng.normal(0, 0.05, (3000, 3)), rng.uniform(-30, 30, (20, 3))])
+    return {
+        "uniform": (f32(rng.uniform(-5, 5, (4000, 3))), f32(rng.uniform(-5, 5, (200, 3)))),
+        "two planes": (f32(planes), f32(rng.uniform(0, 10, (200, 3)))),
+        # a dense body and 20 far outliers: queries in the body, on the
+        # outliers and in the empty space between
+        "cluster and outliers": (f32(cluster), f32(np.concatenate([
+            cluster[:150], cluster[-20:], rng.uniform(-30, 30, (30, 3))]))),
+        # fewer points than k, queried from inside and far outside the box
+        "few points, outside queries": (f32(rng.uniform(0, 1, (7, 3))),
+                                        f32(rng.uniform(-3, 4, (60, 3)))),
+    }
+
+
+@pytest.mark.parametrize("cloud", ["uniform", "two planes", "cluster and outliers",
+                                   "few points, outside queries"])
+def test_knn_levels_plain_is_exact(cloud):
+    """K-knn's walk (start level from the own cell's count, the 3x3x3
+    block, the covered-radius certificate, the next level up on failure)
+    in torch ops, against brute force in torch and in numpy: sorted d2
+    bit-equal, because all three round the same operations in the same
+    order and the certificate only decides when to stop; the indices lie
+    at their distances; and the clustered cloud's queries end on several
+    levels (the levels do adapt)."""
+    pts, queries = _knn_clouds()[cloud]
+    grid = build_grid(torch.tensor(pts))
+    q = torch.tensor(queries)
+    for k in (10, 20, 12):
+        idx, d2, valid, level = knn_levels_plain(grid, q, k)
+        _, d2p, validp = knn_plain(grid.points, q, k)
+        assert torch.equal(d2, d2p) and torch.equal(valid, validp)
+        assert torch.equal(valid.sum(1), torch.full((len(queries),), min(k, len(pts))))
+        gp = grid.points.numpy()
+        ref = _numpy_knn_d2(gp, queries, k)
+        np.testing.assert_array_equal(d2.numpy()[:, : ref.shape[1]], ref)
+        at = ((gp[idx.numpy()] - queries[:, None, :]) ** 2).sum(-1)
+        np.testing.assert_allclose(at[valid.numpy()], d2.numpy()[valid.numpy()], rtol=1e-5,
+                                   atol=1e-12)
+        if cloud == "cluster and outliers":
+            assert len(torch.unique(level)) >= 4
+            assert int(level.max()) - int(level.min()) >= 6
+
+
+def test_knn_radius_matches_jax_radius():
+    """`knn_radius` on the CPU (the plain version: the k-th nearest
+    distance^2, itself included) against the JAX package's radius pass,
+    with the agreement `test_knn_plain_exact_and_matches_jax_grid` states
+    for the same reason (the JAX grid truncates a few queries): rtol 2e-3
+    on > 99.5% of points. A cloud of fewer than k points gets its largest
+    distance."""
+    rng = np.random.default_rng(5)
+    pts = rng.uniform(-5, 5, (3000, 3)).astype(np.float32)
+    k = 10
+    grid = build_grid(torch.tensor(pts))
+    radius = torch.sqrt(knn_radius(grid, k)).numpy()
+    assert torch.equal(knn_radius(grid, k), knn_radius_plain(grid, k))
+    gp = grid.points.numpy()
+    np.testing.assert_array_equal(knn_radius(grid, k).numpy(), _numpy_knn_d2(gp, gp, k)[:, k - 1])
+
+    static, tabs = build_photon_grid(pts.astype(np.float64), k=k)
+    jorder = np.asarray(tabs["order"])
+    pos4 = np.zeros((len(pts), 4), np.float32)
+    pos4[:, :3] = pts[jorder]
+    tabs = dict(tabs, pos4=jnp.asarray(pos4), pos4_2=jnp.asarray(pos4[np.asarray(tabs["map2"])]))
+    jradius = np.empty(len(pts), np.float32)
+    jradius[jorder] = jax_knn_radius(static, tabs, len(pts), k)[: len(pts)]
+    close = np.isclose(jradius[grid.order.numpy()], radius, rtol=2e-3, atol=1e-4)
+    assert close.mean() > 0.995
+
+    few = build_grid(torch.tensor(pts[:4]))
+    d = np.sqrt(((pts[:4, None, :] - pts[None, :4, :]) ** 2).sum(-1)).max(1)
+    np.testing.assert_allclose(torch.sqrt(knn_radius(few, k)).numpy(),
+                               d[few.order.numpy()], rtol=1e-6)
