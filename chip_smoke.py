@@ -1,9 +1,9 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--spp N]
+    python3 chip_smoke.py [--spp N] [--vol-spp N]
 
 Builds the hand-written CUDA kernels from `rpt_tpu_torch/csrc` (one nvcc
-per source, in parallel) and drives both ported paths end to end:
+per source, in parallel) and drives every ported path end to end:
 
 - the point-photon x beam-query path at the lampshade example's own
   parameters; it launches K-sweep (once per camera wavefront) and K-knn
@@ -19,7 +19,19 @@ per source, in parallel) and drives both ported paths end to end:
   (~871k triangles, 512x512, 8 spp, 2 bounces); it launches K1 (closest
   hit) and K2 (any hit), which are then held against their plain versions
   on the render's own camera, bounce and shadow wavefronts, and the
-  sphere and Cornell renders are checked against their golden images.
+  sphere and Cornell renders are checked against their golden images;
+- the photon-map (point query) kind at its lampshade example's own
+  parameters (gather 100 / 30); it launches K-knn twice per camera
+  wavefront, over the surface cloud at k = 100 (the kernel's lists in
+  local memory) and over the volume cloud at k = 30, and both are held
+  against brute force on a real wavefront's queries;
+- the beam x beam kind at its example's parameters; its beam estimate is
+  torch ops, timed and held against a beam-by-beam float64 reference on
+  256 lanes, and the sphere sweep of a medium whose phase depends on the
+  directions (torch ops too) is timed on the point-beam render's spheres;
+- the volumetric path tracer on the lampshade at its example's width
+  through `iterative_render`, its 1000 samples cut by ``--vol-spp``;
+- the three media goldens (volumetric path, photon map, beam-beam).
 
 The counting variants of K-knn, K1 and K2 print what a query or a ray
 costs (levels, cells and candidates; steps, leaf slots and the warps'
@@ -47,6 +59,11 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden", "lampshade_pointbeam_32.npy")
+# The beam estimate and the directional sweep against their references:
+# 1 - cos^2 (a ray a few degrees from a beam) and oc^2 - dd^2 cancel in
+# float32, so rtol 1e-3 (atol 1e-6 of the largest value) on >= 99% of lanes.
+ESTIMATE_RTOL = 1e-3
+ESTIMATE_AGREEMENT = 0.99
 GOLDEN_DIR = os.path.join(ROOT, "tests", "golden")
 
 # K-sweep sums up to ~2M FP32 terms per ray in another order than the
@@ -121,13 +138,14 @@ def phase_build():
         raise RuntimeError("a K-knn kernel for k = 10 or k = 20 uses local memory")
 
 
-def phase_render(spp: int):
+def phase_render(spp_cap):
     sys.path.insert(0, os.path.join(ROOT, "examples"))
     import torch_volumetric_beamphoton_lampshade as ex
     from rpt_tpu_torch.accel.knn import knn_query, knn_radius
     from rpt_tpu_torch.ops.sphere_sweep import sphere_sweep
     from rpt_tpu_torch.renderer import PIXEL_CHUNK
 
+    spp = _cut(ex.sample, spp_cap)
     r = ex.renderer("cuda", sample=spp, seed=0)
     sphere_sweep.launches = 0
     knn_query.launches = 0
@@ -166,6 +184,11 @@ FP32_OPS_PER_S = 67e12
 # bound counts only the pierced pairs, the work any design must do; the
 # pair and tile tests are this design's way of finding them.
 PAIR_OPS, PIERCED_OPS, TILE_TEST_OPS = 20, 30, 60
+
+
+def _cut(sample: int, cap) -> int:
+    """An example's sample count, cut to ``--spp`` where that was given."""
+    return sample if cap is None else min(sample, cap)
 
 
 def _nbytes(*tensors) -> int:
@@ -268,16 +291,11 @@ def phase_sweep(r, ex):
     """K-sweep on the lampshade's sample-0 wavefront (the render's own
     table), on a ragged random case and on a far-small-sphere case; the
     JSON entry carries the sample-0 numbers."""
-    from rpt_tpu_torch.intersect import closest_hit
     from rpt_tpu_torch.ops.sphere_sweep import build_sphere_table, pack_spheres_transposed
-    from rpt_tpu_torch.renderer import camera_rays
-    from rpt_tpu_torch import sampling
 
     scene, pmap = r.compiled, r.photon_map
     medium = scene.media[0]
-    ray = camera_rays(scene, r.camera, r.width_, r.height_,
-                      sampling.fold_in(sampling.key(r.seed_, r.device), 2), 0)
-    hit = closest_hit(scene, scene.tables, ray)
+    ray, _, hit = _sample0(r)
     ext = float(medium.extinction(ray.origin[0:1]).item())
     phase = float(medium.phase_const)
     o, d = ray.origin.to_array().contiguous(), ray.dir.to_array().contiguous()
@@ -418,11 +436,8 @@ def _radius_pass(volume, k):
 def phase_knn(r):
     from rpt_tpu_torch.accel.knn import build_grid, knn_plain, knn_query, knn_query_counts
     from rpt_tpu_torch.integrators.photon import RADIUS_K
-    from rpt_tpu_torch.intersect import closest_hit
-    from rpt_tpu_torch.renderer import camera_rays
-    from rpt_tpu_torch import sampling
 
-    scene, pmap = r.compiled, r.photon_map
+    pmap = r.photon_map
     g = torch.Generator(device="cuda").manual_seed(1)
     surface = pmap.surface_grid
     volume = build_grid(pmap.spheres.spheres_t[0:3, :pmap.spheres.n_spheres].T.contiguous())
@@ -430,9 +445,7 @@ def phase_knn(r):
     # the camera pass's queries: sample 0's surface gather points, as
     # surface_estimate forms them (the origin of space, outside the grid,
     # for a ray that hits nothing)
-    ray = camera_rays(scene, r.camera, r.width_, r.height_,
-                      sampling.fold_in(sampling.key(r.seed_, r.device), 2), 0)
-    hit = closest_hit(scene, scene.tables, ray)
+    ray, _, hit = _sample0(r)
     pos = torch.where(hit.valid[:, None], ray.at(hit.time).to_array(), 0.0).contiguous()
     cases = (
         ("surface cloud, 4096 sampled points", surface,
@@ -732,10 +745,327 @@ def phase_golden_path():
         raise RuntimeError("path-traced golden check failed")
 
 
+def _sample0(r):
+    """Sample 0's camera wavefront of a photon render: ``(ray, estimate
+    keys, hit)`` as `_photon_pass` forms them."""
+    from rpt_tpu_torch import sampling
+    from rpt_tpu_torch.intersect import closest_hit
+    from rpt_tpu_torch.renderer import camera_wavefront
+
+    scene = r.compiled
+    ray, keys = camera_wavefront(scene, r.camera, r.width_, r.height_,
+                                 sampling.fold_in(sampling.key(r.seed_, r.device), 2), 0)
+    return ray, sampling.fold(keys, 4), closest_hit(scene, scene.tables, ray)
+
+
+def _zero_counts():
+    from rpt_tpu_torch.accel.knn import knn_query, knn_radius
+    from rpt_tpu_torch.ops.bvh_traverse import bvh_any_hit, bvh_closest_hit
+    from rpt_tpu_torch.ops.sphere_sweep import sphere_sweep
+
+    for wrapper in (knn_query, knn_radius, sphere_sweep, bvh_closest_hit, bvh_any_hit):
+        wrapper.launches = 0
+    knn_query.by_k.clear()
+
+
+def _read_counts() -> dict:
+    from rpt_tpu_torch.accel.knn import knn_query, knn_radius
+    from rpt_tpu_torch.ops.bvh_traverse import bvh_any_hit, bvh_closest_hit
+    from rpt_tpu_torch.ops.sphere_sweep import sphere_sweep
+
+    return {"knn_query": knn_query.launches, "knn_query_by_k": dict(knn_query.by_k),
+            "knn_radius": knn_radius.launches, "sphere_sweep": sphere_sweep.launches,
+            "bvh_closest_hit": bvh_closest_hit.launches, "bvh_any_hit": bvh_any_hit.launches}
+
+
+def _check_image(label, r, img):
+    finite = bool(np.isfinite(r._last_buffer.raw()).all())
+    if not finite or img.shape != (r.height_, r.width_, 3) or img.mean() <= 0:
+        raise RuntimeError(f"{label} output is not a finite, non-black image of the right shape")
+    return finite
+
+
+def phase_photonmap(spp_cap):
+    """The photon-map kind's main path at its example's parameters, then
+    K-knn at k = 100 on sample 0's surface gather points and at k = 30 on
+    its volume gather points (the sampled collisions) against brute force."""
+    import torch_volumetric_photonphoton_lampshade as ex
+    from rpt_tpu_torch import sampling
+    from rpt_tpu_torch.accel.knn import knn_plain, knn_query
+    from rpt_tpu_torch.renderer import PIXEL_CHUNK
+
+    spp = _cut(ex.sample, spp_cap)
+    r = ex.renderer("cuda", sample=spp, seed=0)
+    _zero_counts()
+    img = r.photon_map_render(ex.photons)
+    launches = _read_counts()
+    s, c = r.phase_seconds, r.photon_counts
+    finite = _check_image("photon-map render", r, img)
+    note = "" if spp == ex.sample else f" (spp lowered from {ex.sample} to {spp})"
+    print(f"[photonmap] {r.width_}x{r.height_} {spp} spp{note}, {ex.photons} photons, gather "
+          f"{r.gather_size_} / {r.gather_size_volume_}: shoot {s['shoot']:.3f} s, build "
+          f"{s['build']:.3f} s, trace {s['trace']:.3f} s ({s['trace'] / spp * 1e3:.1f} ms a "
+          f"sample); surface {c['surface']}, volume {c['volume']}, dropped {c['dropped']}; "
+          f"image mean {img.mean():.4f} (radiance {r._last_buffer.raw().mean():.5f}), finite "
+          f"{finite}; launches {launches}")
+    wavefronts = spp * -(-r.width_ * r.height_ // PIXEL_CHUNK)
+    want = {r.gather_size_: wavefronts, r.gather_size_volume_: wavefronts}
+    if launches["knn_query_by_k"] != want or launches["knn_query"] != 2 * wavefronts:
+        raise RuntimeError(f"K-knn launched {launches['knn_query_by_k']}, not {want}")
+    if launches["sphere_sweep"] or launches["knn_radius"]:
+        raise RuntimeError("the photon-map render launched K-sweep or the radius pass")
+
+    scene, pmap = r.compiled, r.photon_map
+    medium = scene.media[0]
+    ray, ekeys, hit = _sample0(r)
+    surface_q = torch.where(hit.valid[:, None], ray.at(hit.time).to_array(), 0.0).contiguous()
+    d, _, _ = medium.sample_d(ray, sampling.fold(ekeys, 0x7))
+    in_volume = ~hit.valid | (d < hit.time)
+    volume_q = torch.where(in_volume[:, None], ray.at(d).to_array(), 0.0).contiguous()
+    entries = []
+    for label, grid, q, k in (
+            (f"surface gather ({int((~hit.valid).sum())} misses at the origin)",
+             pmap.surface_grid, surface_q, r.gather_size_),
+            (f"volume gather ({int(in_volume.sum())} collisions before the hit)",
+             pmap.volume_grid, volume_q, r.gather_size_volume_)):
+        same, exact, err, idx_ok = _knn_compare(grid, q, k)
+        ms = _time_ms(lambda: knn_query(grid, q, k), 5)
+        plain_ms = _time_ms(lambda: knn_plain(grid.points, q, k), 1)
+        # as the point-beam gather's bound: rows, codes and queries read
+        # once, indices and distances written once; 8 operations a distance
+        bound_ms, bound_by = _bound(_nbytes(grid.rows, grid.codes, q) + q.shape[0] * k * 8,
+                                    q.shape[0] * k * 8)
+        print(f"[photonmap] K-knn {label}: {q.shape[0]} queries x {grid.n} points, k={k}: rows "
+              f"agreeing {same:.5f} (bit-equal {exact:.5f}), max abs err {err:.3e}, indices "
+              f"consistent {idx_ok}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{bound_ms * 1e3:.1f} us ({bound_by}), {ms / bound_ms:.1f}x")
+        if same < 1.0 or exact < KNN_ROW_AGREEMENT or not idx_ok:
+            raise RuntimeError(f"K-knn at k={k} agrees with brute force on {same:.5f} of rows "
+                               f"(bit-equal {exact:.5f}), indices consistent {idx_ok}")
+        entries.append({"name": f"knn_query_k{k}", "route": "cuda",
+                        "source": "rpt_tpu_torch/csrc/knn.cu",
+                        "replaces": "rpt_tpu/accel/grid.py:605", "path": "photonmap",
+                        "launches": launches["knn_query_by_k"][k], "max_abs_err": err, "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": None})
+    return entries
+
+
+def _beams_reference(beams, medium, o, d, hit_time):
+    """The beam x beam estimate beam by beam in float64 (photon.rs:503-593
+    with ``t > 0``) for a few lanes: (n, 3)."""
+    n = o.shape[0]
+    zero = torch.zeros((n, 3), dtype=torch.float32, device=o.device)
+    ext = float(medium.extinction(_vec(zero))[0])
+    color = medium.color(_vec(zero)).to_array().double()
+    o, d, hit_time = o.double(), d.double(), hit_time.double()
+    acc = torch.zeros((n, 3), dtype=torch.float64, device=o.device)
+    for b in range(beams.n_beams):
+        start, bdir = beams.start[b].double(), beams.dir[b].double()
+        length, radius, power = float(beams.length[b]), float(beams.radius[b]), beams.power[b]
+        l = start[None, :] - o
+        u = torch.nn.functional.normalize(torch.linalg.cross(l, bdir.expand_as(l)), dim=1)
+        nn = torch.nn.functional.normalize(torch.linalg.cross(bdir.expand_as(u), u), dim=1)
+        t = (nn * l).sum(1) / (nn * d).sum(1)
+        qc = o + d * t[:, None]
+        beam_t = ((qc - start) * bdir).sum(1)
+        dist = (qc - (start + bdir * beam_t[:, None])).norm(dim=1)
+        ok = (t > 0) & (t < hit_time) & (beam_t >= 0) & (beam_t <= length) & (dist < radius)
+        cosb = (d * bdir).sum(1)
+        inv_sin = 1.0 / torch.sqrt(torch.clamp(1.0 - cosb * cosb, min=1e-12))
+        ph = medium.phase(_vec(-bdir.float().expand(n, 3)), _vec(-d.float())).double()
+        x = 1.0 - dist / radius
+        w = (ext * ph * inv_sin * torch.exp(-ext * t) * torch.exp(-ext * beam_t)
+             * (3.0 / np.pi) * x * x / (2.0 * radius))
+        acc += torch.where(ok, w, 0.0)[:, None] * power.double()[None, :]
+    return (acc * color).float()
+
+
+def _vec(a):
+    from rpt_tpu_torch.vec import Vec3
+
+    return Vec3(a[:, 0], a[:, 1], a[:, 2])
+
+
+def _estimate_agreement(got, ref) -> float:
+    close = torch.isclose(got, ref, rtol=ESTIMATE_RTOL, atol=1e-6 * float(ref.abs().max()))
+    return float(close.all(dim=1).float().mean())
+
+
+def phase_beambeam(spp_cap):
+    """The beam x beam kind's main path at its example's parameters; its
+    beam estimate (torch ops) timed on sample 0's wavefront and held to the
+    beam-by-beam reference on 256 lanes spread over the wavefront."""
+    import torch_volumetric_beambeam_lampshade as ex
+    from rpt_tpu_torch.integrators.photon import volume_estimate_beams
+    from rpt_tpu_torch.ray import Ray
+    from rpt_tpu_torch.renderer import PIXEL_CHUNK
+
+    spp = _cut(ex.sample, spp_cap)
+    r = ex.renderer("cuda", sample=spp, seed=0)
+    _zero_counts()
+    img = r.photon_beam_query_beam_render(ex.photons)
+    launches = _read_counts()
+    s, c = r.phase_seconds, r.photon_counts
+    finite = _check_image("beam-beam render", r, img)
+    beams = r.photon_map.beams
+    note = "" if spp == ex.sample else f" (spp lowered from {ex.sample} to {spp})"
+    print(f"[beambeam] {r.width_}x{r.height_} {spp} spp{note}, {ex.photons} photons, gather "
+          f"{r.gather_size_}: shoot {s['shoot']:.3f} s, build {s['build']:.3f} s, trace "
+          f"{s['trace']:.3f} s ({s['trace'] / spp * 1e3:.1f} ms a sample); surface "
+          f"{c['surface']}, volume {c['volume']}, beams kept {beams.n_beams}; image mean "
+          f"{img.mean():.4f}, finite {finite}; launches {launches}")
+    wavefronts = spp * -(-r.width_ * r.height_ // PIXEL_CHUNK)
+    if launches["knn_query_by_k"] != {r.gather_size_: wavefronts}:
+        raise RuntimeError(f"K-knn launched {launches['knn_query_by_k']}, not one surface gather "
+                           f"per wavefront ({wavefronts})")
+    if launches["sphere_sweep"] or launches["knn_radius"] or not beams.n_beams:
+        raise RuntimeError("the beam-beam render launched K-sweep or the radius pass, or kept "
+                           "no beam")
+
+    medium = r.compiled.media[0]
+    ray, _, hit = _sample0(r)
+    got = volume_estimate_beams(r.photon_map, medium, ray, hit).to_array()
+    ms = _time_ms(lambda: volume_estimate_beams(r.photon_map, medium, ray, hit), 5)
+    lanes = torch.arange(0, ray.origin.x.shape[0], max(1, ray.origin.x.shape[0] // 256),
+                         device=ray.origin.x.device)[:256]
+    few = Ray(ray.origin[lanes], ray.dir[lanes])
+    hit_time = torch.where(hit.valid, hit.time, float("inf"))[lanes]
+    ref, ref_ms = _events_ms(lambda: _beams_reference(beams, medium, few.origin.to_array(),
+                                                      few.dir.to_array(), hit_time))
+    share = _estimate_agreement(got[lanes], ref)
+    lit = float((ref > 0).any(dim=1).float().mean())
+    err = float((got[lanes] - ref).abs().max())
+    print(f"[beambeam] beam estimate (torch ops): {got.shape[0]} lanes x {beams.n_beams} beams "
+          f"{ms:.3f} ms a sample; against the beam-by-beam float64 reference on 256 lanes "
+          f"({lit:.3f} of them cross a beam; reference {ref_ms:.1f} ms): within rtol "
+          f"{ESTIMATE_RTOL} on {share:.4f} of lanes, max abs err {err:.3e} of max "
+          f"{float(ref.max()):.3e}")
+    if share < ESTIMATE_AGREEMENT or lit <= 0 or not bool(torch.isfinite(got).all()):
+        raise RuntimeError(f"the beam estimate agrees with its reference on {share:.4f} of lanes")
+    return launches["knn_query"]
+
+
+def phase_directional_sweep(r):
+    """The sphere sweep of a medium whose phase depends on the directions
+    (torch ops on the card, as it is XLA in the JAX package), on the
+    point-beam render's spheres: a Henyey-Greenstein medium with g = 0 has
+    the isotropic constant, so 2048 lanes of it are held to K-sweep; then
+    one timed call over sample 0's whole wavefront with g = 0.6."""
+    import rpt_tpu_torch as rpt
+    from rpt_tpu_torch.integrators.photon import volume_estimate_spheres
+    from rpt_tpu_torch.ray import Hit, Ray
+
+    pmap, iso = r.photon_map, r.compiled.media[0]
+    ray, _, hit = _sample0(r)
+    ext = float(iso.extinction(ray.origin[0:1])[0])
+    lanes = slice(0, ray.origin.x.shape[0], max(1, ray.origin.x.shape[0] // 2048))
+    few = Ray(ray.origin[lanes], ray.dir[lanes])
+    few_hit = Hit(hit.time[lanes], hit.normal[lanes], hit.material[lanes])
+    g0 = rpt.Medium.henyey_greenstein(0.0, ext, 0.0)
+    got = volume_estimate_spheres(pmap, g0, few, few_hit).to_array()
+    ref = volume_estimate_spheres(pmap, iso, few, few_hit).to_array()
+    share = _estimate_agreement(got, ref)
+    hg = rpt.Medium.henyey_greenstein(0.0, ext, 0.6)
+    out, ms = _events_ms(lambda: volume_estimate_spheres(pmap, hg, ray, hit).to_array())
+    ratio = float(out.mean() / volume_estimate_spheres(pmap, iso, ray, hit).to_array().mean())
+    print(f"[sweep-phase] directional sweep (torch ops): g = 0 against K-sweep on "
+          f"{got.shape[0]} lanes x {pmap.spheres.n_spheres} spheres within rtol {ESTIMATE_RTOL} "
+          f"on {share:.4f} of lanes; g = 0.6 over {out.shape[0]} lanes {ms:.1f} ms a sample, "
+          f"mean {ratio:.3f} of the isotropic estimate, finite "
+          f"{bool(torch.isfinite(out).all())}")
+    if share < ESTIMATE_AGREEMENT or not bool(torch.isfinite(out).all()) or ratio == 1.0:
+        raise RuntimeError(f"the directional sweep agrees with K-sweep on {share:.4f} of lanes")
+
+
+def phase_volpath(spp: int):
+    """The volumetric path tracer at its example's width through
+    `iterative_render`, its 1000 samples cut to ``spp``; one untimed
+    warm-up sample first. The lampshade's 12 triangles take the dense
+    test, so the path launches none of the hand-written kernels."""
+    import torch_volumetric_pathtrace_lampshade as ex
+    from rpt_tpu_torch import Buffer
+    from rpt_tpu_torch.renderer import RayCounter
+
+    r = ex.renderer("cuda", sample=spp, seed=0)
+    r.sample(1, Buffer(r.width_, r.height_, r.filter_))
+    r._sample_index, r.ray_counter = 0, RayCounter()
+    calls = []
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    buffer = r.iterative_render(ex.every_x, lambda i, b: calls.append(i))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_counts()
+    raw, img = buffer.raw(), buffer.image()
+    segs = r.ray_counter.segments
+    finite = bool(np.isfinite(raw).all())
+    print(f"[volpath] {r.width_}x{r.height_}, media depth {r.media_max_depth_}, {spp} spp (cut "
+          f"from the example's {ex.sample}), callbacks at {calls}: wall {wall:.3f} s, "
+          f"{wall / spp:.4f} s a sample, {segs} ray segments ({segs / spp / r.width_ / r.height_:.2f}"
+          f" a path), {segs / wall / 1e6:.3f} Mrays/s; image mean {img.mean():.4f} (radiance "
+          f"{raw.mean():.5f}), finite {finite}; launches {launches}")
+    if not finite or img.shape != (r.height_, r.width_, 3) or img.mean() <= 0:
+        raise RuntimeError("volumetric render is not a finite, non-black image of the right shape")
+    if not calls or calls[-1] != spp or segs <= spp * r.width_ * r.height_:
+        raise RuntimeError("iterative_render did not trace every sample")
+    if any(v for v in launches.values()):
+        raise RuntimeError(f"the lampshade's volumetric path launched a kernel: {launches}")
+
+
+def _golden(name):
+    return np.load(os.path.join(GOLDEN_DIR, f"{name}.npy")).astype(np.float64)
+
+
+def phase_golden_media():
+    """The three media goldens on the card with tests/test_golden.py's
+    settings (:78-94, :111-123): the volumetric path under `_check(
+    tol_mean=0.03, tol_p99=0.25)` and the photon map under `_check_img`
+    (mean 0.02, p99 0.2 of the golden's mean), neither with a floor. The
+    beam-beam golden's mean is 2.41 u8 levels and it encodes the JAX grid's
+    truncated neighbour sets (tests/test_torch_photon_kinds.py shows that
+    with those the port meets the unmodified limits): its p99 limit is
+    floored at one level and its mean limit is 0.05, for this golden only."""
+    import torch_volumetric_beamphoton_lampshade as ex
+
+    def renderer(spp):
+        return ex.renderer("cuda", size=32, bounce=6, sample=spp, photons=4000, seed=42)
+
+    r = renderer(6).media_max_depth(8)
+    r.render()
+    raw, ref = r._last_buffer.raw(), _golden("lampshade_path_32_6spp")
+    diff, scale = np.abs(raw - ref), max(ref.mean(), 1e-6)
+    mean_rel, p99_rel = diff.mean() / scale, np.percentile(diff, 99) / scale
+    ok = bool(np.isfinite(raw).all()) and mean_rel < 0.03 and p99_rel < 0.25
+    print(f"[golden-media] lampshade_path_32_6spp: mean |diff|/mean {mean_rel:.4f} (< 0.03), "
+          f"p99/mean {p99_rel:.4f} (< 0.25); ok {ok}")
+    for name, method, mean_limit, p99_floor in (
+            ("lampshade_photonmap_32", "photon_map_render", 0.02, 0.0),
+            ("lampshade_beambeam_32", "photon_beam_query_beam_render", 0.05, 1.0)):
+        img = getattr(renderer(2), method)(4000).astype(np.float64)
+        ref = _golden(name)
+        diff, scale = np.abs(img - ref), max(ref.mean(), 1e-6)
+        mean_rel, p99 = diff.mean() / scale, np.percentile(diff, 99)
+        limit = max(0.2 * scale, p99_floor)
+        good = mean_rel < mean_limit and (p99 <= limit if p99_floor else p99 < limit)
+        ok = ok and good
+        print(f"[golden-media] {name}: golden mean {scale:.2f} levels, mean |diff|/mean "
+              f"{mean_rel:.4f} (< {mean_limit}), p99 |diff| {p99:.1f} levels (limit {limit:.3f}; "
+              f"p99/mean {p99 / scale:.4f}, unfloored limit 0.2), values differing "
+              f"{int((diff > 0).sum())} of {diff.size}; ok {good}")
+    if not ok:
+        raise RuntimeError("media golden check failed")
+
+
 def main():
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU")
-    parser.add_argument("--spp", type=int, default=50,
-                        help="camera samples of the full-size render (the example's 50)")
+    parser.add_argument("--spp", type=int, default=None,
+                        help="cap on the camera samples of the three full-size photon renders "
+                             "(their examples' 50, 100 and 50 when left out)")
+    parser.add_argument("--vol-spp", type=int, default=40,
+                        help="camera samples of the volumetric path render (the example's 1000 "
+                             "would take about half an hour)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; nothing was run")
@@ -756,6 +1086,11 @@ def main():
         k["launches"] = path_launches[k["name"]]
     kernels += traverse
     phase_golden_path()
+    kernels += phase_photonmap(args.spp)
+    kernels[1]["beambeam_launches"] = phase_beambeam(args.spp)
+    phase_directional_sweep(r)
+    phase_volpath(args.vol_spp)
+    phase_golden_media()
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

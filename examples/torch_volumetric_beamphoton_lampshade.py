@@ -108,28 +108,36 @@ def renderer(device="cuda", size=size, bounce=bounce, sample=sample, photons=pho
     )
 
 
-def main():
-    """Render at the example's parameters on the card (on the CPU where
-    there is none) and save a PNG. As with the JAX drivers,
-    RPT_TPU_PREVIEW=<s> divides the resolution by s and caps samples at
-    RPT_TPU_PREVIEW_SAMPLES (4) and photons at RPT_TPU_PREVIEW_PHOTONS
-    (5000)."""
+def preview_cut(size: int, sample: int, photons: int = 0):
+    """(resolution, samples, photons, device) of an example's run: its own
+    parameters on the card, on the CPU where there is none. As with the JAX
+    examples, RPT_TPU_PREVIEW=<s> divides the resolution by s and caps
+    samples at RPT_TPU_PREVIEW_SAMPLES (4) and photons at
+    RPT_TPU_PREVIEW_PHOTONS (5000)."""
     import torch
-    from PIL import Image
 
-    res, spp, n_photons = size, sample, photons
     preview = os.environ.get("RPT_TPU_PREVIEW")
     if preview:
-        res = max(8, size // max(1, int(preview)))
-        spp = max(1, min(sample, int(os.environ.get("RPT_TPU_PREVIEW_SAMPLES", "4"))))
-        n_photons = min(photons, int(os.environ.get("RPT_TPU_PREVIEW_PHOTONS", "5000")))
-    device = "cuda" if torch.cuda.is_available() else "cpu"
-    img = renderer(device, size=res, sample=spp).photon_point_query_beam_render(n_photons)
-    os.makedirs("lampshade/beamphoton", exist_ok=True)
-    path = (f"lampshade/beamphoton/torch_{res}_{bounce}_{spp}_{n_photons}_{watts}_"
-            f"{gather_size}_{gather_size_volume}_{absorb}_{scat}.png")
+        size = max(8, size // max(1, int(preview)))
+        sample = max(1, min(sample, int(os.environ.get("RPT_TPU_PREVIEW_SAMPLES", "4"))))
+        photons = min(photons, int(os.environ.get("RPT_TPU_PREVIEW_PHOTONS", "5000")))
+    return size, sample, photons, "cuda" if torch.cuda.is_available() else "cpu"
+
+
+def save(img, path: str):
+    from PIL import Image
+
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     Image.fromarray(img).save(path)
     print(f"saved {path}")
+
+
+def main():
+    """Render at the example's parameters (`preview_cut`) and save a PNG."""
+    res, spp, n_photons, device = preview_cut(size, sample, photons)
+    img = renderer(device, size=res, sample=spp).photon_point_query_beam_render(n_photons)
+    save(img, f"lampshade/beamphoton/torch_{res}_{bounce}_{spp}_{n_photons}_{watts}_"
+              f"{gather_size}_{gather_size_volume}_{absorb}_{scat}.png")
 
 
 if __name__ == "__main__":

@@ -19,7 +19,8 @@ exact.
 * `knn_query` is the wrapper: for tensors on the CPU it runs `knn_plain`,
   chunked brute force (the exact spec); for CUDA tensors it launches the
   hand-written kernel `csrc/knn.cu` (K-knn) or raises.
-  ``knn_query.launches`` counts kernel launches.
+  ``knn_query.launches`` counts kernel launches, ``knn_query.by_k`` the
+  same launches by their k.
 * `knn_radius` is the self-query of the radius pass: per grid point the
   k-th nearest distance^2, itself included, in one launch
   (``knn_radius.launches``); on the CPU `knn_radius_plain`.
@@ -32,6 +33,7 @@ exact.
 
 from __future__ import annotations
 
+import collections
 import itertools
 from dataclasses import dataclass
 
@@ -316,6 +318,7 @@ def knn_query(grid: PhotonGrid, queries: torch.Tensor, k: int):
         return torch.zeros((n, k), dtype=torch.int64, device=dev), d2, torch.isfinite(d2)
     code, idx, d2 = _launch_query(grid, queries, k, None)
     knn_query.launches += 1
+    knn_query.by_k[k] += 1
     _build.check(code, "knn_query")
     valid = torch.isfinite(d2)
     return torch.where(valid, idx.long(), 0), d2, valid
@@ -362,4 +365,5 @@ def knn_radius_counts(grid: PhotonGrid, k: int) -> torch.Tensor:
 
 
 knn_query.launches = 0
+knn_query.by_k = collections.Counter()
 knn_radius.launches = 0

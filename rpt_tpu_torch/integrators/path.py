@@ -1,5 +1,5 @@
-"""Wavefront path tracing, surface branch — port of
-`rpt_tpu/integrators/path.py` (`rpt/src/renderer.rs:286-321`).
+"""Wavefront path tracing — port of `rpt_tpu/integrators/path.py`
+(`rpt/src/renderer.rs:188-321`).
 
 ``trace_surface`` runs the per-ray recursion of ``Renderer::trace_ray`` as
 a loop over bounce levels, each over the whole wavefront: emission at
@@ -15,9 +15,17 @@ semantics are the JAX package's: no occluder strictly closer than the
 light (`rpt_tpu/integrators/path.py:23-29`), or with ``nee_mode ==
 "exact"`` the reference's closest-hit-at-the-light test.
 
+``trace_volumetric`` is the media branch (renderer.rs:188-285): per level
+a free-flight distance against the closest hit decides between a medium
+event, a surface event and an escape; both kinds of event run next-event
+estimation from one shared point, radiance accumulates forwards as
+``L += throughput * contrib`` with no firefly clamp, and Russian roulette
+(p = 0.8) ends paths. The JAX scan runs every level over the whole
+wavefront; here the surviving lanes are compacted between levels. Keys are
+per lane, so a lane's radiance does not depend on the compaction.
+
 Not ported: the JAX package's pooled schedule (``POOLED_SCHEDULE``,
-``mixed_closest_occluded``), which is TPU scheduling, and the media
-branch ``trace_volumetric``.
+``mixed_closest_occluded``), which is TPU scheduling.
 """
 
 from __future__ import annotations
@@ -33,6 +41,8 @@ from ..ray import Ray
 from ..vec import Vec3, where
 
 FIREFLY_CLAMP = 100.0  # renderer.rs:18
+BACKGROUND_DIST = 400.0  # renderer.rs:199
+RR_P = 0.8  # renderer.rs:193
 
 # Dead lanes trace this ray instead of one from a sanitized origin: far
 # outside every scene, pointing away, so every traversal rejects it at the
@@ -70,6 +80,30 @@ def sample_lights(scene, tables, mat, pos: Vec3, n: Vec3, wo: Vec3, keys, mask=N
         intensity, wi, dist = illuminate(lstat, ltab, pos, sampling.fold(keys, 0x1100 + li))
         f = bsdf(mat, n, wo, wi)
         pending.append((wi, f * intensity * wi.dot(n), dist))
+    zero = Vec3.zeros(pos.x.shape, pos.x.device)
+    for visible, (_, contrib, _) in zip(_shadow_visible_batch(scene, tables, pos, pending, mask),
+                                        pending):
+        color = color + where(visible, contrib, zero)
+    return color
+
+
+def sample_lights_for_media(scene, tables, medium, pos: Vec3, wo: Vec3, keys, mask=None) -> Vec3:
+    """renderer.rs:325-359 — NEE for a medium scattering point
+    (`rpt_tpu/integrators/path.py:123`): the light's intensity times the
+    medium colour, the scattering albedo and the phase function, with the
+    same batched shadow query and per-light RNG streams as `sample_lights`."""
+    scat = medium.scattering(pos)
+    ext = medium.extinction(pos)
+    medium_color = medium.color(pos)
+    color = Vec3.zeros(pos.x.shape, pos.x.device)
+    pending = []
+    for li, (lstat, ltab) in enumerate(zip(scene.lights, tables["lights"])):
+        if lstat.kind == "ambient":
+            color = color + ltab["color"].broadcast_to(pos.shape) * medium_color
+            continue
+        intensity, wi, dist = illuminate(lstat, ltab, pos, sampling.fold(keys, 0x1100 + li))
+        ph = medium.phase(wo, wi)
+        pending.append((wi, intensity * medium_color * ((scat / ext) * ph), dist))
     zero = Vec3.zeros(pos.x.shape, pos.x.device)
     for visible, (_, contrib, _) in zip(_shadow_visible_batch(scene, tables, pos, pending, mask),
                                         pending):
@@ -164,3 +198,88 @@ def trace_surface(scene, tables, ray: Ray, keys, max_bounces: int, return_stats:
     if return_stats:
         return radiance, segments
     return radiance
+
+
+def trace_volumetric(scene, tables, ray: Ray, keys, max_depth: int = 32,
+                     return_stats: bool = False):
+    """Radiance of a wavefront of camera rays in a scene with a
+    participating medium (``scene.media[0]`` only, as the reference's TODO
+    at renderer.rs:189; `rpt_tpu/integrators/path.py:504`). ``keys`` are the
+    (n, 2) per-lane trace keys. With ``return_stats``, also returns the
+    number of traced ray segments as a 0-dim int64 tensor: per level the
+    live lanes plus one shadow segment per non-ambient light for every
+    medium or surface event."""
+    n = ray.origin.x.shape[0]
+    dev = ray.origin.x.device
+    materials = tables["materials"]
+    medium = scene.media[0]
+    n_shadow = sum(1 for light in scene.lights if light.kind != "ambient")
+    radiance = torch.zeros((n, 3), dtype=DTYPE, device=dev)
+    segments = torch.zeros((), dtype=torch.int64, device=dev)
+    lane = torch.arange(n, device=dev)  # the output row of each live lane
+    throughput = Vec3.ones(n, dev)
+    for b in range(max_depth):
+        nw = lane.shape[0]
+        if nw == 0:
+            break
+        zero = Vec3.zeros(nw, dev)
+        kb = sampling.fold(keys, b)
+
+        d, _, _ = medium.sample_d(ray, sampling.fold(kb, 1))
+        hit = closest_hit(scene, tables, ray)
+        has_hit = hit.valid
+        medium_event = d < torch.where(has_hit, hit.time, BACKGROUND_DIST)
+        surface_event = ~medium_event & has_hit
+        escape_event = ~medium_event & ~has_hit
+
+        wo = -ray.dir.normalize()
+        collision = _sanitize(ray.at(d), medium_event)
+        surf_pos = _sanitize(ray.at(hit.time), surface_event)
+        mat = materials.lookup(hit.material)
+
+        # ---- emission (level 0 only), environment, NEE --------------------
+        med_color_c = medium.color(collision)
+        contrib = where(escape_event & (d >= BACKGROUND_DIST),
+                        scene.env_color(tables, ray.dir), zero)
+        if b == 0:
+            contrib = (contrib
+                       + where(surface_event, mat.color_query() * mat.emittance_query(), zero)
+                       + where(medium_event, med_color_c * medium.emission(collision), zero))
+        # one shared shadow origin: its position depends on the event kind
+        nee_pos = where(medium_event, collision, surf_pos)
+        nee_surf = sample_lights(scene, tables, mat, nee_pos, hit.normal, wo,
+                                 sampling.fold(kb, 2), mask=surface_event)
+        nee_med = sample_lights_for_media(scene, tables, medium, nee_pos, wo,
+                                          sampling.fold(kb, 3), mask=medium_event)
+        contrib = contrib + where(surface_event, nee_surf, zero) + where(medium_event, nee_med,
+                                                                         zero)
+        radiance[lane] += (throughput * contrib).to_array()
+        segments = segments + nw + (medium_event | surface_event).sum() * n_shadow
+
+        # ---- Russian roulette continuation (p = 0.8) ----------------------
+        survive = sampling.uniform(sampling.fold(kb, 4)) < RR_P
+        # surface continuation (renderer.rs:222-234)
+        wi_s, pdf_s, valid_s = sample_f(mat, hit.normal, wo, sampling.fold(kb, 5))
+        f = bsdf(mat, hit.normal, wo, wi_s)
+        surf_factor = f * (torch.abs(wi_s.dot(hit.normal))
+                           / (torch.clamp(pdf_s, min=1e-20) * RR_P))
+        # medium continuation (renderer.rs:262-281)
+        scat_c = medium.scattering(collision)
+        ext_c = medium.absorption(collision) + scat_c
+        wi_m, ph_p = medium.sample_ph(wo, sampling.fold(kb, 6))
+        ph = medium.phase(wo, wi_m)
+        med_factor = med_color_c * ((scat_c / ext_c) * ph / (torch.clamp(ph_p, min=1e-20) * RR_P))
+
+        cont = survive & (medium_event | (surface_event & valid_s))
+        throughput = throughput * where(medium_event, med_factor, surf_factor)
+        # the lanes that go on, compacted in lane order
+        sel = torch.nonzero(cont).squeeze(1)
+        ray = Ray(where(medium_event, collision, surf_pos)[sel],
+                  where(medium_event, wi_m, wi_s)[sel])
+        throughput = throughput.broadcast_to((nw,))[sel]
+        keys = keys[sel]
+        lane = lane[sel]
+    out = Vec3(radiance[:, 0], radiance[:, 1], radiance[:, 2])
+    if return_stats:
+        return out, segments
+    return out

@@ -3,8 +3,9 @@
 
 Fields are callables ``Vec3 -> tensor`` over position. Distance sampling
 and transmittance follow the reference exactly, including evaluating
-extinction at the ray origin only (medium.rs:126-130). The two isotropic
-presets are ported; Henyey-Greenstein is not yet.
+extinction at the ray origin only (medium.rs:126-130). Presets: the two
+isotropic fogs of the reference and the JAX package's Henyey-Greenstein
+medium, whose phase depends on the directions (``phase_const`` is None).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import torch
 from . import sampling
 from .color import hex_color
 from .ray import Ray
-from .vec import Vec3, where
+from .vec import Vec3, from_local, where
 
 
 @dataclass(frozen=True)
@@ -97,6 +98,44 @@ class Medium:
             phase=lambda wo, wi: torch.full_like(wo.x, phase_const),
             sample_ph=sample_ph,
             phase_const=phase_const,
+        )
+
+    @staticmethod
+    def henyey_greenstein(absorption: float, scattering: float, g: float,
+                          color=None) -> "Medium":
+        """Homogeneous medium with a Henyey-Greenstein phase function of
+        asymmetry ``g`` in (-1, 1) (`rpt_tpu/medium.py:112`; not in the
+        reference). ``sample_ph`` inverts the CDF around ``-wo`` and returns
+        the phase value as its pdf; ``abs(g) < 1e-6`` samples the uniform
+        sphere."""
+        col = color if color is not None else hex_color(0xD2B48C)
+
+        def phase(wo: Vec3, wi: Vec3):
+            # wo and wi both point away from the scattering point
+            # (medium.rs:63-65): the angle between the transport directions
+            cos_t = (-wo).dot(wi)
+            denom = (1.0 + g * g + 2.0 * g * cos_t) ** 1.5
+            return sampling.INV_4PI * (1.0 - g * g) / torch.clamp(denom, min=1e-12)
+
+        def sample_ph(wo: Vec3, keys):
+            r1, r2 = sampling.uniform2(sampling.fold(keys, 0x9A))
+            if abs(g) < 1e-6:
+                return sampling.uniform_sphere(r1, r2), torch.full_like(r1, sampling.INV_4PI)
+            sq = (1.0 - g * g) / (1.0 + g - 2.0 * g * r1)
+            cos_t = torch.clamp(-(1.0 + g * g - sq * sq) / (2.0 * g), -1.0, 1.0)
+            sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+            phi = sampling.TWO_PI * r2
+            local = Vec3(sin_t * torch.cos(phi), cos_t, sin_t * torch.sin(phi))
+            wi = from_local(local, -wo).normalize()
+            return wi, phase(wo, wi)
+
+        return Medium(
+            absorption=lambda p: torch.full_like(p.x, absorption),
+            scattering=lambda p: torch.full_like(p.x, scattering),
+            emission=lambda p: torch.zeros_like(p.x),
+            color=lambda p: _const(col, p),
+            phase=phase,
+            sample_ph=sample_ph,
         )
 
 

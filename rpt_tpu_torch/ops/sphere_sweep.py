@@ -20,6 +20,8 @@ of that test) and sweep only those.
 it launches K-sweep on a `SphereTable` or raises. `pierced_count` counts
 the pierced pairs of each ray through the same cull and test, for
 verification only (`pierced_count_plain` is its plain version).
+`sphere_sweep_phase` is the sweep for media whose phase is no constant:
+torch ops on every device, as it is XLA in the JAX package.
 ``sphere_sweep.launches`` counts K-sweep's launches on the main path.
 """
 
@@ -182,6 +184,26 @@ def sphere_sweep_plain(ray_o, ray_d, hit_time, spheres_t, ext: float, med_color,
         x = dist2 / r2
         k2 = (1.0 - x) * (1.0 - x)
         w = torch.where(ok, k2 / r2 * torch.exp(-ext * dd) * scale, 0.0)
+        acc = acc + w @ sph[7:10].T
+    return acc * med_color[None, :]
+
+
+def sphere_sweep_phase(ray_o, ray_d, hit_time, spheres_t, ext: float, med_color,
+                       n_spheres: int, phase) -> torch.Tensor:
+    """The sweep for a medium whose phase depends on the directions, in
+    torch ops on any device: the JAX package's chunked XLA sweep
+    (`rpt_tpu/integrators/photon.py:669-718`), which its Pallas kernel does
+    not serve either. ``phase(photon_dir, ray_dir)`` takes two triples of
+    broadcastable (rays, chunk) components and returns the phase value of
+    every pair."""
+    acc = torch.zeros((ray_o.shape[0], 3), dtype=torch.float32, device=ray_o.device)
+    d = tuple(ray_d[:, i : i + 1] for i in range(3))
+    for (ok, dd, dist2, r2), sph in _chunks(ray_o, ray_d, hit_time, spheres_t, n_spheres):
+        x = dist2 / r2
+        k2 = (3.0 / math.pi) * (1.0 - x) * (1.0 - x)
+        ph = phase(tuple(sph[4 + i][None, :].expand_as(dd) for i in range(3)),
+                   tuple(c.expand_as(dd) for c in d))
+        w = torch.where(ok, k2 / r2 * ph * torch.exp(-ext * dd), 0.0)
         acc = acc + w @ sph[7:10].T
     return acc * med_color[None, :]
 

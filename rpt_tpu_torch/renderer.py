@@ -9,11 +9,11 @@ on on the CPU. Both passes trace
 one wavefront per pixel sample in a Python loop over absolute sample
 indices, so per-sample RNG streams match the JAX package's.
 
-Ported: path tracing of scenes without media (``render``, ``sample``,
-``iterative_render`` through `integrators.path.trace_surface`) and the
-point-photon x beam-query integrator (``photon_point_query_beam_render``).
-A scene with a medium needs ``trace_volumetric``, which is not ported:
-``render`` raises for it.
+All four integrators run: path tracing (``render``, ``sample``,
+``iterative_render``) through `integrators.path.trace_surface`, or
+`trace_volumetric` where the scene has a medium, and the three photon
+kinds (``photon_map_render``, ``photon_point_query_beam_render``,
+``photon_beam_query_beam_render``) through `integrators.photon`.
 """
 
 from __future__ import annotations
@@ -147,14 +147,10 @@ class Renderer:
         mean, exposure-scaled) to the buffer (renderer.rs:158-184). Sample
         indices are absolute across calls, as in the JAX package."""
         scene = self.compiled
-        if scene.media:
-            raise NotImplementedError(
-                "path tracing a scene with a medium needs trace_volumetric, which is not "
-                "ported yet")
         t0 = time.perf_counter()
         total, segments = _path_pass(scene, self.camera, self.width_, self.height_,
                                      sampling.key(self.seed_, self.device), self._sample_index,
-                                     int(iterations), self.max_bounces_)
+                                     int(iterations), self.max_bounces_, self.media_max_depth_)
         elapsed = time.perf_counter() - t0
         self._sample_index += iterations
         self.ray_counter.record(scene, self.width_, self.height_, iterations,
@@ -165,9 +161,17 @@ class Renderer:
     # ------------------------------------------------------------------
     # Photon mapping (photon.rs:642-720)
 
+    def photon_map_render(self, photon_count: int) -> np.ndarray:
+        """Point-photon / point-query photon mapping (photon.rs:650-652)."""
+        return self.photon_render(photon_count, "photon_map")
+
     def photon_point_query_beam_render(self, photon_count: int) -> np.ndarray:
         """Point-photon / beam-query (photon.rs:642-644)."""
         return self.photon_render(photon_count, "point_beam")
+
+    def photon_beam_query_beam_render(self, photon_count: int) -> np.ndarray:
+        """Beam-photon / beam-query (photon.rs:646-648)."""
+        return self.photon_render(photon_count, "beam_beam")
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -177,12 +181,12 @@ class Renderer:
                       occlusion_check: bool = True) -> np.ndarray:
         """Shoot, build the map, run the camera pass; returns the (H, W, 3)
         sRGB u8 image. Keys as the JAX package: ``fold_in(key, 1)`` for
-        the shoot, ``fold_in(key, 2)`` for the camera pass. Records
-        ``phase_seconds`` (shoot/build/trace), ``photon_counts`` and the
-        built ``photon_map``."""
+        the shoot, ``fold_in(key, 2)`` for the camera pass, and the host
+        generator ``default_rng(seed + 17)`` for the beam-beam kind's
+        thinning. Records ``phase_seconds`` (shoot/build/trace),
+        ``photon_counts`` and the built ``photon_map``."""
         from .integrators import photon as ph
 
-        ph._require_point_beam(kind)
         scene = self.compiled
         key = sampling.key(self.seed_, self.device)
 
@@ -200,7 +204,8 @@ class Renderer:
         print("Building photon maps")
         t0 = time.perf_counter()
         pmap = ph.build_photon_map(scene, scene.tables, photons.surface, photons.volume,
-                                   kind, self.gather_size_)
+                                   kind, self.gather_size_, self.gather_size_volume_,
+                                   np.random.default_rng(self.seed_ + 17))
         self._sync()
         t_build = time.perf_counter() - t0
         self.photon_map = pmap
@@ -209,7 +214,7 @@ class Renderer:
         t0 = time.perf_counter()
         total = _photon_pass(scene, self.camera, self.width_, self.height_, pmap,
                              sampling.fold_in(key, 2), self.num_samples_,
-                             self.gather_size_, occlusion_check)
+                             self.gather_size_, self.gather_size_volume_, occlusion_check)
         self._sync()
         t_trace = time.perf_counter() - t0
         self.phase_seconds = {"shoot": t_shoot, "build": t_build, "trace": t_trace}
@@ -226,8 +231,8 @@ class RayCounter:
     """Rays/s instrumentation (`rpt_tpu/renderer.py:293`; the reference has
     none). ``rays`` is the JAX package's estimate: every path runs every
     level and casts one shadow segment per non-ambient light at each.
-    ``segments`` counts the segments `trace_surface` traced, as
-    `bench.py` does."""
+    ``segments`` counts the segments `trace_surface` or
+    `trace_volumetric` traced, as `bench.py` does."""
 
     def __init__(self):
         self.rays = 0
@@ -299,20 +304,17 @@ def camera_wavefront(scene, camera: Camera, width: int, height: int, key, s: int
     return camera.cast_ray(xn + jx, yn + jy, sampling.fold(keys, 3)), keys
 
 
-def camera_rays(scene, camera: Camera, width: int, height: int, key, s: int) -> Ray:
-    """Sample ``s``'s camera wavefront (`camera_wavefront` without keys)."""
-    return camera_wavefront(scene, camera, width, height, key, s)[0]
-
-
 def _path_pass(scene, camera: Camera, width: int, height: int, key, s0: int, n_samples: int,
-               max_bounces: int):
+               max_bounces: int, media_max_depth: int = 32):
     """The per-sample launch of `rpt_tpu/renderer.py::build_launch`: for
     each absolute sample index s0..s0+n_samples-1, one camera wavefront
-    traced by `trace_surface` in PATH_CHUNK-lane pieces (per-pixel keys
-    make the image independent of the chunking), summed in float32.
-    Returns the (H*W, 3) radiance sum in raster order (f64) and the number
-    of traced ray segments."""
-    from .integrators.path import trace_surface
+    traced in PATH_CHUNK-lane pieces (per-pixel keys make the image
+    independent of the chunking) by `trace_volumetric` with
+    ``media_max_depth`` levels where the scene has a medium, else by
+    `trace_surface` with ``max_bounces``, summed in float32. Returns the
+    (H*W, 3) radiance sum in raster order (f64) and the number of traced
+    ray segments."""
+    from .integrators.path import trace_surface, trace_volumetric
 
     dev = scene.device
     n_pix = width * height
@@ -323,8 +325,13 @@ def _path_pass(scene, camera: Camera, width: int, height: int, key, s0: int, n_s
         trace_keys = sampling.fold(keys, 4)
         for c in range(0, n_pix, PATH_CHUNK):
             sl = slice(c, min(c + PATH_CHUNK, n_pix))
-            color, segs = trace_surface(scene, scene.tables, Ray(ray.origin[sl], ray.dir[sl]),
-                                        trace_keys[sl], max_bounces, return_stats=True)
+            piece = Ray(ray.origin[sl], ray.dir[sl])
+            if scene.media:
+                color, segs = trace_volumetric(scene, scene.tables, piece, trace_keys[sl],
+                                               media_max_depth, return_stats=True)
+            else:
+                color, segs = trace_surface(scene, scene.tables, piece, trace_keys[sl],
+                                            max_bounces, return_stats=True)
             total[sl] += color.to_array()
             segments += segs
     inv = torch.tensor(_pixel_grid(width, height)[3], device=dev)
@@ -332,21 +339,25 @@ def _path_pass(scene, camera: Camera, width: int, height: int, key, s0: int, n_s
 
 
 def _photon_pass(scene, camera: Camera, width: int, height: int, pmap, key,
-                 n_samples: int, gather_size: int, occlusion_check: bool) -> np.ndarray:
+                 n_samples: int, gather_size: int, gather_size_volume: int,
+                 occlusion_check: bool) -> np.ndarray:
     """Photon-map camera pass (photon.rs:950-985, `rpt_tpu/renderer.py:
     389-453`): one ``estimate_indirect`` per pixel sample, no camera
-    recursion. Returns the (H*W, 3) radiance sum in raster order, f64."""
+    recursion; its per-lane keys are fold 4 of the sample's. Returns the
+    (H*W, 3) radiance sum in raster order, f64."""
     from .integrators.photon import estimate_indirect
 
     dev = scene.device
     n_pix = width * height
     total = torch.zeros((n_pix, 3), dtype=torch.float32, device=dev)
     for s in range(n_samples):
-        ray = camera_rays(scene, camera, width, height, key, s)
+        ray, keys = camera_wavefront(scene, camera, width, height, key, s)
+        ekeys = sampling.fold(keys, 4)
         for c in range(0, n_pix, PIXEL_CHUNK):
             sl = slice(c, min(c + PIXEL_CHUNK, n_pix))
             color = estimate_indirect(scene, scene.tables, pmap, Ray(ray.origin[sl], ray.dir[sl]),
-                                      gather_size, occlusion_check)
+                                      ekeys[sl], gather_size, gather_size_volume,
+                                      occlusion_check)
             total[sl] += color.to_array()
     inv = torch.tensor(_pixel_grid(width, height)[3], device=dev)
     return total[inv].cpu().numpy().astype(np.float64)

@@ -18,7 +18,14 @@ sys.path.insert(0, os.path.join(ROOT, "examples"))
 import torch_cornell  # noqa: E402
 import torch_dragon  # noqa: E402
 import torch_sphere  # noqa: E402
+import torch_volumetric_beambeam_lampshade as lampshade_beams  # noqa: E402
 import torch_volumetric_beamphoton_lampshade as lampshade  # noqa: E402
+import torch_volumetric_pathtrace_lampshade as lampshade_path  # noqa: E402
+import torch_volumetric_photonphoton_lampshade as lampshade_map  # noqa: E402
+
+EXAMPLES = ("torch_volumetric_beamphoton_lampshade", "torch_volumetric_photonphoton_lampshade",
+            "torch_volumetric_beambeam_lampshade", "torch_volumetric_pathtrace_lampshade",
+            "torch_dragon", "torch_sphere", "torch_cornell")
 
 
 def _modules():
@@ -33,12 +40,21 @@ def test_modules_import_without_jax():
     assert {"rpt_tpu_torch.integrators.photon", "rpt_tpu_torch.ops.sphere_sweep",
             "rpt_tpu_torch.accel.knn", "rpt_tpu_torch.renderer",
             "rpt_tpu_torch.integrators.path", "rpt_tpu_torch.ops.bvh_traverse",
-            "rpt_tpu_torch.meshes"} <= set(names)
+            "rpt_tpu_torch.meshes", "rpt_tpu_torch.medium"} <= set(names)
+    found = {f[:-3] for f in os.listdir(os.path.join(ROOT, "examples"))
+             if f.startswith("torch_") and f.endswith(".py")}
+    assert found == set(EXAMPLES)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
         "    importlib.import_module(name)\n"
-        "import torch_volumetric_beamphoton_lampshade, torch_dragon, torch_sphere, torch_cornell\n"
+        f"for name in {EXAMPLES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "from rpt_tpu_torch.integrators.path import trace_volumetric\n"
+        "from rpt_tpu_torch.integrators.photon import volume_estimate_beams, "
+        "volume_estimate_point\n"
+        "from rpt_tpu_torch import Medium\n"
+        "assert callable(Medium.henyey_greenstein)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'rpt_tpu')]\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n"
@@ -69,6 +85,7 @@ def test_cuda_device_raises_without_a_card():
         scene.compile()
     # and of the examples' renderer helpers
     for make in (torch_sphere.renderer, torch_cornell.renderer, lampshade.renderer,
+                 lampshade_map.renderer, lampshade_beams.renderer, lampshade_path.renderer,
                  lambda: torch_dragon.renderer(scene=scene)):
         with pytest.raises(RuntimeError, match="cuda"):
             make()
@@ -97,8 +114,11 @@ def test_sah_builder_source_is_the_ports_own_copy():
 
 
 def test_path_tracing_is_not_ported_yet():
-    """Path tracing is ported: `render()` works on the CPU (an 8x8 sphere
-    under a point light, 2 spp); the photon-map kind still raises."""
+    """Every integrator is ported: `render()` works on the CPU (an 8x8
+    sphere under a point light, 2 spp), with and without a medium, and so
+    do the three photon kinds on a scene with an object light; nothing in
+    the renderer, the photon integrator or the medium raises
+    ``NotImplementedError``."""
     scene = tr.Scene()
     scene.add(tr.Object(tr.sphere()))
     scene.add(tr.Light.Point((50.0, 50.0, 50.0), (0.0, 5.0, 5.0)))
@@ -106,6 +126,28 @@ def test_path_tracing_is_not_ported_yet():
     img = r.render()
     assert img.shape == (8, 8, 3) and img.dtype == np.uint8 and img.max() > 0
     assert np.isfinite(r._last_buffer.raw()).all()
-    with pytest.raises(NotImplementedError):
-        r.photon_render(100, "photon_map")
     assert np.isfinite(r.scene.compile("cpu").t_min)
+    with pytest.raises(RuntimeError, match="non-object lights"):
+        r.photon_render(100, "photon_map")
+
+    for fog in (None, tr.Medium.henyey_greenstein(1e-3, 1e-2, 0.5)):
+        scene = tr.Scene()
+        scene.add(tr.Object(tr.sphere()).material(tr.Material.diffuse((0.8, 0.8, 0.8))))
+        scene.add(tr.Light.Object(tr.Object(tr.sphere().translate((0.0, 4.0, 0.0))).material(
+            tr.Material.light((1.0, 1.0, 1.0), 20.0))))
+        if fog is not None:
+            scene.add(fog)
+        r = (tr.Renderer(scene, tr.Camera(), device="cpu").width(8).height(8).num_samples(1)
+             .gather_size(5).gather_size_volume(3).watts(100.0))
+        renders = [r.render, lambda: r.photon_map_render(300),
+                   lambda: r.photon_point_query_beam_render(300),
+                   lambda: r.photon_beam_query_beam_render(300)]
+        for render in renders:
+            img = render()
+            assert img.shape == (8, 8, 3) and np.isfinite(r._last_buffer.raw()).all()
+    with pytest.raises(ValueError, match="unknown photon map kind"):
+        r.photon_render(100, "beam_map")
+    for name in ("renderer.py", "medium.py", os.path.join("integrators", "photon.py"),
+                 os.path.join("integrators", "path.py")):
+        with open(os.path.join(os.path.dirname(tr.__file__), name)) as f:
+            assert "NotImplementedError" not in f.read(), name

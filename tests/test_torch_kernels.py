@@ -285,6 +285,64 @@ def test_knn_kernels_match_plain_on_card():
     assert torch.equal(knn_radius(few, 10), knn_radius_plain(few, 10))
 
 
+GATHER_K = (30, 100)  # the photon-map example's volume and surface gather sizes
+
+
+@pytest.mark.parametrize("k", GATHER_K)
+def test_knn_plain_at_gather_sizes(k):
+    """`knn_plain` (what `knn_query` runs on the CPU) at the photon-map
+    kind's k against a numpy sort of all distances, on the body-in-a-halo
+    cloud: d^2 ascending and equal to the sorted distances (the same f32
+    operations: rtol 1e-6), indices distinct and at their distances; a
+    cloud of fewer than k points pads with invalid entries."""
+    pts = _strays_cloud()
+    rng = np.random.default_rng(k)
+    q = torch.cat([pts[rng.integers(0, len(pts), 200)],
+                   torch.tensor(rng.uniform(-4, 4, (56, 3)), dtype=torch.float32)])
+    grid = build_grid(pts)
+    idx, d2, valid = knn_query(grid, q, k)
+    assert idx.shape == d2.shape == valid.shape == (256, k) and bool(valid.all())
+    diff = grid.points.numpy()[None, :, :] - q.numpy()[:, None, :]
+    dist = (diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]
+            + diff[..., 2] * diff[..., 2])
+    np.testing.assert_allclose(d2.numpy(), np.sort(dist, axis=1)[:, :k], rtol=1e-6)
+    np.testing.assert_allclose(np.take_along_axis(dist, idx.numpy(), axis=1), d2.numpy(),
+                               rtol=1e-6)
+    ranked = np.sort(idx.numpy(), axis=1)
+    assert (ranked[:, 1:] != ranked[:, :-1]).all() and bool((d2[:, 1:] >= d2[:, :-1]).all())
+    _, d2f, validf = knn_query(build_grid(pts[:7]), q[:5], k)
+    assert validf.sum(dim=1).tolist() == [7] * 5 and bool(torch.isinf(d2f[:, 7:]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", GATHER_K)
+def test_knn_query_at_gather_sizes_on_card(k):
+    """K-knn's query kernel at the photon-map kind's k (30: the warp list;
+    100: the lists in local memory) against brute force on the card, on
+    the body-with-outliers cloud of `test_knn_kernels_match_plain_on_card`:
+    sorted d^2 bit-equal, indices distinct and at their distances, one
+    launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    rng = np.random.default_rng(3)
+    pts = np.concatenate([rng.normal(0, 0.5, (60000, 3)), rng.uniform(-300, 300, (40, 3)),
+                          np.full((170, 3), 0.125)])
+    grid = build_grid(torch.tensor(pts, dtype=torch.float32, device="cuda"))
+    q = torch.cat([grid.points[torch.randint(0, grid.n, (3000,), device="cuda")],
+                   torch.tensor(pts[60000:60040], dtype=torch.float32, device="cuda"),
+                   torch.tensor(rng.uniform(-400, 400, (211, 3)), dtype=torch.float32,
+                                device="cuda")])
+    before = knn_query.launches
+    idx, d2, valid = knn_query(grid, q, k)
+    assert knn_query.launches == before + 1
+    _, d2p, _ = knn_plain(grid.points, q, k)
+    assert bool(valid.all()) and torch.equal(d2, d2p)
+    at = ((grid.points[idx] - q[:, None, :]) ** 2).sum(-1)
+    torch.testing.assert_close(at, d2, rtol=1e-5, atol=1e-6)
+    ranked = torch.sort(idx, dim=1).values
+    assert bool((ranked[:, 1:] != ranked[:, :-1]).all())
+
+
 def test_plain_traversal_matches_brute_force():
     """The plain K1/K2 (the ordered traversal) against the dense test of
     every leaf row on a random soup: the same algebra on the same

@@ -1,10 +1,13 @@
-"""Where the time of the port's path-traced dragon render goes.
+"""Where the time of the port's path-traced renders goes.
 
-    python3 tools/profile_torch_path.py [--spp 2] [--size 512] [--device cuda]
+    python3 tools/profile_torch_path.py [--scene dragon] [--spp 2] [--size N]
+                                        [--device cuda]
 
 Compiles the scene of `examples/torch_dragon.py` (bench.py's dragon
-stand-in, ~871k triangles, 2 bounces), traces one untimed warm-up sample,
-then ``--spp`` samples under `torch.profiler`, and prints the wall time,
+stand-in, ~871k triangles, 2 bounces, 512^2) or, with ``--scene
+lampshade``, of `examples/torch_volumetric_pathtrace_lampshade.py` (the
+media branch, 32 levels, 128^2), traces one untimed warm-up sample, then
+``--spp`` samples under `torch.profiler`, and prints the wall time,
 the time the device was busy (the union of its kernels' intervals), that
 share of the wall, the number of kernels launched and the kernels that
 took the most device time, among them K1 (``closest_hit_kernel``) and K2
@@ -21,6 +24,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[:0] = [ROOT, os.path.join(ROOT, "examples"), os.path.dirname(os.path.abspath(__file__))]
 
 import torch_dragon as dr  # noqa: E402
+import torch_volumetric_pathtrace_lampshade as vol  # noqa: E402
 from profile_torch_photon import _profiled  # noqa: E402
 from rpt_tpu_torch import sampling  # noqa: E402
 from rpt_tpu_torch.renderer import _path_pass  # noqa: E402
@@ -29,20 +33,28 @@ from rpt_tpu_torch.renderer import _path_pass  # noqa: E402
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--device", default="cuda")
-    parser.add_argument("--size", type=int, default=dr.WIDTH)
+    parser.add_argument("--scene", default="dragon", choices=("dragon", "lampshade"))
+    parser.add_argument("--size", type=int, default=None)
     parser.add_argument("--spp", type=int, default=2)
     args = parser.parse_args()
 
-    r = dr.renderer(args.device, size=args.size, spp=args.spp)
+    if args.scene == "dragon":
+        r = dr.renderer(args.device, size=args.size or dr.WIDTH, spp=args.spp)
+    else:
+        r = vol.renderer(args.device, size=args.size or vol.size, sample=args.spp)
     scene, dev = r.compiled, r.device
     key = sampling.key(r.seed_, dev)
-    print(f"profile: dragon {args.size}^2, {scene.n_tris} triangles, {args.spp} spp, "
-          f"{r.max_bounces_} bounces on "
-          f"{torch.cuda.get_device_name(dev) if dev.type == 'cuda' else 'cpu'}")
-    # warm-up: builds the kernels and the caching allocator's pools
-    _path_pass(scene, r.camera, r.width_, r.height_, key, 0, 1, r.max_bounces_)
-    _, segments = _profiled(f"trace {args.spp} spp", lambda: _path_pass(
-        scene, r.camera, r.width_, r.height_, key, 1, args.spp, r.max_bounces_), dev)
+    depth = (f"media depth {r.media_max_depth_}" if scene.media
+             else f"{r.max_bounces_} bounces")
+    print(f"profile: {args.scene} {r.width_}^2, {scene.n_tris} triangles, {args.spp} spp, "
+          f"{depth} on {torch.cuda.get_device_name(dev) if dev.type == 'cuda' else 'cpu'}")
+
+    def trace(s0, n):
+        return _path_pass(scene, r.camera, r.width_, r.height_, key, s0, n, r.max_bounces_,
+                          r.media_max_depth_)
+
+    trace(0, 1)  # warm-up: builds the kernels and the caching allocator's pools
+    _, segments = _profiled(f"trace {args.spp} spp", lambda: trace(1, args.spp), dev)
     print(f"   {segments} ray segments")
 
 

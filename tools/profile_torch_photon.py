@@ -1,10 +1,13 @@
-"""Where the time of the port's point-beam photon render goes.
+"""Where the time of the port's photon renders goes.
 
-    python3 tools/profile_torch_photon.py [--spp 5] [--photons 1000000]
-                                          [--size 128] [--device cuda]
+    python3 tools/profile_torch_photon.py [--kind point_beam] [--spp 5]
+                                          [--photons 1000000] [--size 128]
+                                          [--device cuda]
 
-Runs the three phases of `examples/torch_volumetric_beamphoton_lampshade.py`
-(shoot, map build, camera pass) one after the other under
+Runs the three phases of a lampshade photon example (``--kind``:
+`examples/torch_volumetric_beamphoton_lampshade.py` for ``point_beam``,
+`..._photonphoton_...` for ``photon_map``, `..._beambeam_...` for
+``beam_beam``; shoot, map build, camera pass) one after the other under
 `torch.profiler`, and prints for each phase its wall time, the time the
 device was busy (the union of its kernels' intervals on the device
 timeline), that share of the wall, the number of kernels launched, and
@@ -25,10 +28,18 @@ from torch.profiler import ProfilerActivity, profile
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[:0] = [ROOT, os.path.join(ROOT, "examples")]
 
-import torch_volumetric_beamphoton_lampshade as ex  # noqa: E402
+import numpy as np  # noqa: E402
+import torch_volumetric_beambeam_lampshade  # noqa: E402
+import torch_volumetric_beamphoton_lampshade  # noqa: E402
+import torch_volumetric_photonphoton_lampshade  # noqa: E402
 from rpt_tpu_torch import sampling  # noqa: E402
 from rpt_tpu_torch.integrators import photon as ph  # noqa: E402
 from rpt_tpu_torch.renderer import _photon_pass  # noqa: E402
+
+
+EXAMPLES = {ph.POINT_BEAM: torch_volumetric_beamphoton_lampshade,
+            ph.PHOTON_MAP: torch_volumetric_photonphoton_lampshade,
+            ph.BEAM_BEAM: torch_volumetric_beambeam_lampshade}
 
 
 def _busy_ms(intervals) -> float:
@@ -72,27 +83,33 @@ def _profiled(name, fn, device):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--device", default="cuda")
-    parser.add_argument("--size", type=int, default=ex.size)
-    parser.add_argument("--photons", type=int, default=ex.photons)
+    parser.add_argument("--kind", default=ph.POINT_BEAM, choices=sorted(EXAMPLES))
+    parser.add_argument("--size", type=int, default=128)
+    parser.add_argument("--photons", type=int, default=1_000_000)
     parser.add_argument("--spp", type=int, default=5)
     args = parser.parse_args()
 
-    r = ex.renderer(args.device, size=args.size, sample=args.spp, photons=args.photons)
+    ex = EXAMPLES[args.kind]
+    # the photon-map example's watts do not scale with the photon count
+    scaled = {} if args.kind == ph.PHOTON_MAP else {"photons": args.photons}
+    r = ex.renderer(args.device, size=args.size, sample=args.spp, **scaled)
     scene, dev = r.compiled, r.device
     if dev.type == "cuda":
         from rpt_tpu_torch.ops import _build
 
         _build.library()
     key = sampling.key(r.seed_, dev)
-    print(f"profile: lampshade {args.size}^2, {args.photons} photons, {args.spp} spp on "
+    print(f"profile: lampshade {args.kind} {args.size}^2, {args.photons} photons, gather "
+          f"{r.gather_size_} / {r.gather_size_volume_}, {args.spp} spp on "
           f"{torch.cuda.get_device_name(dev) if dev.type == 'cuda' else 'cpu'}")
     photons = _profiled("shoot", lambda: ph.shoot_photons_device(
         scene, scene.tables, sampling.fold_in(key, 1), args.photons, r.watts_), dev)
     pmap = _profiled("build", lambda: ph.build_photon_map(
-        scene, scene.tables, photons.surface, photons.volume, ph.POINT_BEAM, r.gather_size_), dev)
+        scene, scene.tables, photons.surface, photons.volume, args.kind, r.gather_size_,
+        r.gather_size_volume_, np.random.default_rng(r.seed_ + 17)), dev)
     _profiled(f"trace {args.spp} spp", lambda: _photon_pass(
         scene, r.camera, r.width_, r.height_, pmap, sampling.fold_in(key, 2), args.spp,
-        r.gather_size_, True), dev)
+        r.gather_size_, r.gather_size_volume_, True), dev)
 
 
 if __name__ == "__main__":
