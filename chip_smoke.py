@@ -22,9 +22,14 @@ per source, in parallel) and drives every ported path end to end:
   sphere and Cornell renders are checked against their golden images;
 - the photon-map (point query) kind at its lampshade example's own
   parameters (gather 100 / 30); it launches K-knn twice per camera
-  wavefront, over the surface cloud at k = 100 (the kernel's lists in
-  local memory) and over the volume cloud at k = 30, and both are held
-  against brute force on a real wavefront's queries;
+  wavefront, over the surface cloud at k = 100 (a warp's list four
+  registers a lane) and over the volume cloud at k = 30 (one), and both
+  are held against brute force on a real wavefront's queries, the surface
+  queries also at k = 50, 64 and 128;
+- `examples/torch_photon_map.py` (`photon_map.py`: 512x512, 10 spp, 10M
+  photons) at its full size with `Renderer`'s default gather, 50 / 50:
+  K-knn at k = 50 (two registers a lane) once per wavefront over the
+  surface photons, held against brute force on a wavefront's queries;
 - the beam x beam kind at its example's parameters; its beam estimate is
   torch ops, timed and held against a beam-by-beam float64 reference on
   256 lanes, and the sphere sweep of a medium whose phase depends on the
@@ -35,7 +40,12 @@ per source, in parallel) and drives every ported path end to end:
 
 The counting variants of K-knn, K1 and K2 print what a query or a ray
 costs (levels, cells and candidates; steps, leaf slots and the warps'
-live-lane share).
+live-lane share). A K-knn gather is timed on every wavefront of a sample,
+captured from the render's own pass, with L2 evicted before each call (as
+between the render's launches) and warm; its bound counts the distinct
+points among its answers. A K-knn entry's launches are its path's
+gathers at its k; gathers that no path makes (k = 64 and 128, and k = 50
+on the lampshade) ride as side fields of the entry of their list.
 
 Every phase prints its lines; any failure raises and exits non-zero. The
 launch counts of each path are set to 0 just before it and read just
@@ -50,6 +60,7 @@ where CUDA is unavailable or the repository is not beside it.
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -97,6 +108,30 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+# A write this large evicts the H100's 50 MB L2 before a cold call.
+L2_EVICT_BYTES = 1 << 30
+
+
+def _cold_ms(fn, reps: int) -> float:
+    """Mean milliseconds of ``fn`` on the card with its data out of L2, as
+    between a render's launches, where the pass's other work evicts it:
+    before each call a write of `L2_EVICT_BYTES` (which also keeps the card
+    busy while the host issues the call); CUDA events bracket the call
+    alone. One warm-up call first."""
+    scratch = torch.empty(L2_EVICT_BYTES // 4, dtype=torch.float32, device="cuda")
+    fn()
+    pairs = []
+    for _ in range(reps):
+        scratch.fill_(1.0)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps
+
+
 def phase_device() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -115,6 +150,15 @@ def phase_device() -> str:
     return smi
 
 
+def _knn_kernel(line: str) -> str:
+    """A K-knn kernel's name and lists from ptxas's line for its mangled
+    entry function."""
+    kind = "query" if "knn_query_kernel" in line else "radius"
+    lists = [f"RegTopK<{n}>" for n in re.findall(r"RegTopKILi(\d+)E", line)]
+    lists += [f"WarpListR<{n}>" for n in re.findall(r"WarpListRILi(\d+)E", line)]
+    return f"{kind}<{', '.join(lists)}>"
+
+
 def phase_build():
     from rpt_tpu_torch.ops import _build
 
@@ -123,19 +167,24 @@ def phase_build():
     paths = ", ".join(os.path.relpath(p, ROOT) for p in lib.paths)
     print(f"[build] {paths} in {lib.build_seconds:.2f} s; "
           f"ptxas: {' | '.join(usage) if usage else 'cached'}")
-    # K-knn's kernels for k = 10 and k = 20 (the query kernel's one list
-    # across a warp's lanes, the self-query's list per lane) keep their
-    # top-k in registers: ptxas must report no stack frame and no spill
+    # K-knn keeps its lists in registers: the query kernel's one list
+    # across a warp's lanes (one, two or four entries a lane: k <= 32, 64,
+    # 128) and the self-query's list a lane for k = 10 and k = 20. ptxas
+    # must report no stack frame and no spill for each of these five.
     lines = lib.log.splitlines()
-    frames = [lines[i + 2].strip() for i, line in enumerate(lines[:-2])
-              if "Compiling entry function" in line and "Lb0E" in line and "LocalTopK" not in line
-              and ("RegTopK" in line or "WarpList" in line)]
+    found = [(_knn_kernel(line), lines[i + 2].strip(),
+              lines[i + 3].split(":")[-1].split(",")[0].replace("Used", ""))
+             for i, line in enumerate(lines[:-3])
+             if "Compiling entry function" in line and "Lb0E" in line
+             and ("RegTopK" in line or "WarpListR" in line)]
+    frames = [frame for _, frame, _ in found]
     local = [f for f in frames if not f.startswith("0 bytes stack frame, 0 bytes spill stores, "
                                                    "0 bytes spill loads")]
-    print(f"[build] K-knn kernels with the list in registers: {len(frames)}, of which with "
-          f"local memory: {len(local)} {local}")
-    if usage and (len(frames) != 3 or local):
-        raise RuntimeError("a K-knn kernel for k = 10 or k = 20 uses local memory")
+    print(f"[build] K-knn kernels with the list in registers: "
+          f"{'; '.join(f'{name}{regs}' for name, _, regs in found)}; of which with local "
+          f"memory: {len(local)} {local}")
+    if usage and (len(frames) != 5 or local):
+        raise RuntimeError("a K-knn kernel whose list should lie in registers uses local memory")
 
 
 def phase_render(spp_cap):
@@ -143,7 +192,6 @@ def phase_render(spp_cap):
     import torch_volumetric_beamphoton_lampshade as ex
     from rpt_tpu_torch.accel.knn import knn_query, knn_radius
     from rpt_tpu_torch.ops.sphere_sweep import sphere_sweep
-    from rpt_tpu_torch.renderer import PIXEL_CHUNK
 
     spp = _cut(ex.sample, spp_cap)
     r = ex.renderer("cuda", sample=spp, seed=0)
@@ -165,7 +213,7 @@ def phase_render(spp_cap):
     for name, n in launches.items():
         if n <= 0:
             raise RuntimeError(f"the render never launched {name}")
-    if launches["sphere_sweep"] != spp * -(-r.width_ * r.height_ // PIXEL_CHUNK):
+    if launches["sphere_sweep"] != _wavefronts(r, spp):
         raise RuntimeError(f"K-sweep launched {launches['sphere_sweep']} times for {spp} "
                            "samples, not once per wavefront")
     if launches["knn_radius"] != 1:
@@ -343,15 +391,29 @@ def phase_sweep(r, ex):
             "bound_by": bound_by, "library_ms": None}
 
 
-def _knn_compare(grid, q, k):
-    """K-knn against brute force on queries ``q``: the share of rows whose
-    sorted d^2 agree (rtol 1e-6), the share bit-equal, the max abs d^2
-    error, and whether every returned index is a distinct point lying at
-    its returned d^2 (recomputed in the kernel's operation order)."""
+def _gather_bound(q, k, idx, valid):
+    """K-knn's bound on one gather: ``(bound_ms, bound_by, rows)``. Bytes:
+    the ``rows`` distinct points among its answers read once (16-byte
+    rows), the queries read once, indices and distances written once; the
+    rest of the cloud, and the codes that this design's searches read, are
+    not the function's. Operations: at least 8 for each of a query's k
+    distances."""
+    rows = int(torch.unique(idx[valid]).numel())
+    bound_ms, bound_by = _bound(rows * 16 + _nbytes(q) + q.shape[0] * k * 8, q.shape[0] * k * 8)
+    return bound_ms, bound_by, rows
+
+
+def _knn_compare(grid, q, k, d2p=None):
+    """K-knn against brute force on queries ``q`` (``d2p``: `knn_plain`'s
+    d^2 for them, when already computed): the share of rows whose sorted
+    d^2 agree (rtol 1e-6), the share bit-equal, the max abs d^2 error, and
+    whether every returned index is a distinct point lying at its returned
+    d^2 (recomputed in the kernel's operation order)."""
     from rpt_tpu_torch.accel.knn import knn_plain, knn_query
 
     idx, d2, valid = knn_query(grid, q, k)
-    _, d2p, _ = knn_plain(grid.points, q, k)
+    if d2p is None:
+        _, d2p, _ = knn_plain(grid.points, q, k)
     p = grid.points[idx]
     dx, dy, dz = (p[..., i] - q[:, None, i] for i in range(3))
     at = torch.where(valid, dx * dx + dy * dy + dz * dz, float("inf"))
@@ -473,17 +535,17 @@ def phase_knn(r):
     if worst < KNN_ROW_AGREEMENT or not idx_ok:
         raise RuntimeError(f"K-knn agrees with brute force on only {worst:.5f} of rows, "
                            f"indices consistent {idx_ok}")
-    # the reported times are the camera pass's (the last case); its bound:
-    # the grid's rows and cell codes and the queries read once, the indices
-    # and distances written once; at least 8 operations for each of the k
-    # distances of a query
-    bound_ms, bound_by = _bound(_nbytes(grid.rows, grid.codes, q) + q.shape[0] * k * 8,
-                                q.shape[0] * k * 8)
-    print(f"[K-knn] camera pass bound {bound_ms * 1e3:.1f} us ({bound_by}); kernel "
-          f"{ms / bound_ms:.1f}x its bound")
+    # the reported times are the camera pass's (the last case), with its
+    # data out of L2 as between the render's launches, and warm
+    idx, _, valid = knn_query(grid, q, k)
+    bound_ms, bound_by, rows = _gather_bound(q, k, idx, valid)
+    cold = _cold_ms(lambda: knn_query(grid, q, k), 5)
+    print(f"[K-knn] camera pass: kernel {cold:.3f} ms with its data out of L2 ({ms:.3f} warm); "
+          f"bound {bound_ms * 1e3:.2f} us ({bound_by}; {rows} distinct points answer), "
+          f"{cold / bound_ms:.1f}x its bound")
     return {"name": "knn_query", "route": "cuda", "source": "rpt_tpu_torch/csrc/knn.cu",
-            "replaces": "rpt_tpu/accel/grid.py:605", "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "replaces": "rpt_tpu/accel/grid.py:605", "max_abs_err": err, "ms": cold,
+            "warm_ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None, **radius}
 
 
@@ -785,14 +847,129 @@ def _check_image(label, r, img):
     return finite
 
 
+def _capture_gathers(r):
+    """Sample 0 of a photon render's camera pass once more, with K-knn's
+    wrapper recording each call and timing it in place (CUDA events around
+    the call inside the pass, host waits included): by ``(cloud, k)``, the
+    queries of each of the sample's wavefronts and the ms of their calls."""
+    from rpt_tpu_torch import sampling
+    from rpt_tpu_torch.integrators import photon
+    from rpt_tpu_torch.renderer import _photon_pass
+
+    inner, calls = photon.knn_query, []
+
+    def run(grid, q, k):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = inner(grid, q, k)
+        end.record()
+        calls.append((grid, q, k, start, end))
+        return out
+
+    photon.knn_query = run
+    try:
+        _photon_pass(r.compiled, r.camera, r.width_, r.height_, r.photon_map,
+                     sampling.fold_in(sampling.key(r.seed_, r.device), 2), 1, r.gather_size_,
+                     r.gather_size_volume_, True)
+    finally:
+        photon.knn_query = inner
+    torch.cuda.synchronize()
+    gathers = {}
+    for grid, q, k, start, end in calls:
+        cloud = "surface" if grid is r.photon_map.surface_grid else "volume"
+        gathers.setdefault((cloud, k), []).append((q, start.elapsed_time(end)))
+    return gathers
+
+
+def _gather_case(label, grid, qs, k, in_pass_ms=None):
+    """K-knn on one gather's queries, ``qs`` a list of wavefronts (all of a
+    sample): the first against brute force (`_knn_compare`, every row; and
+    bit-equal on the 256 rows of largest k-th d^2), brute force timed once;
+    each wavefront timed by `_cold_ms` (its data out of L2, as in the
+    render) and by `_time_ms` (warm), with its bound (`_gather_bound`); the
+    counting variant over all of them. Times and bounds are means a
+    wavefront. Returns the numbers of its kernel entry."""
+    from rpt_tpu_torch.accel.knn import knn_plain, knn_query, knn_query_counts
+
+    q = qs[0]
+    (_, d2p, _), plain_ms = _events_ms(lambda: knn_plain(grid.points, q, k))
+    same, exact, err, idx_ok = _knn_compare(grid, q, k, d2p)
+    _, d2, valid = knn_query(grid, q, k)
+    far = torch.topk(torch.where(valid[:, -1], d2[:, -1], -1.0), min(256, q.shape[0])).indices
+    far_exact = float((d2[far] == d2p[far]).all(dim=1).float().mean())
+    cold, warm, bounds, rows = [], [], [], []
+    for w in qs:
+        cold.append(_cold_ms(lambda: knn_query(grid, w, k), 5))
+        warm.append(_time_ms(lambda: knn_query(grid, w, k), 5))
+        idx, _, valid = knn_query(grid, w, k)
+        bound_ms, bound_by, n_rows = _gather_bound(w, k, idx, valid)
+        bounds.append(bound_ms)
+        rows.append(n_rows)
+    ms, warm_ms, bound_ms = (sum(v) / len(qs) for v in (cold, warm, bounds))
+    c = torch.cat([knn_query_counts(grid, w, k) for w in qs])
+    in_pass = "" if in_pass_ms is None else (
+        f"; inside the render's pass {in_pass_ms:.3f} ms (events around the wrapper, host "
+        f"waits included)")
+    print(f"{label}: {len(qs)} wavefront(s) of {q.shape[0]} queries x {grid.n} points, k={k}: "
+          f"the first against brute force: rows agreeing {same:.5f} (bit-equal {exact:.5f}; the "
+          f"256 of largest k-th d^2 {far_exact:.5f}), max abs err {err:.3e}, indices consistent "
+          f"{idx_ok}, plain {plain_ms:.3f} ms; kernel a wavefront {ms:.3f} ms with its data out "
+          f"of L2 (by wavefront {', '.join(f'{t:.3f}' for t in cold)}), {warm_ms:.3f} ms warm{in_pass}; "
+          f"bound {bound_ms * 1e3:.2f} us ({bound_by}; distinct points among the answers "
+          f"{min(rows)}-{max(rows)} a wavefront), {ms / bound_ms:.1f}x; counts: levels "
+          f"{_quantiles(c[:, 0])}; cells {_quantiles(c[:, 1])}; candidates {_quantiles(c[:, 2])} "
+          f"(mean {float(c[:, 2].float().mean()):.1f})")
+    if same < 1.0 or exact < KNN_ROW_AGREEMENT or far_exact < KNN_ROW_AGREEMENT or not idx_ok:
+        raise RuntimeError(f"K-knn at k={k} agrees with brute force on {same:.5f} of rows "
+                           f"(bit-equal {exact:.5f}, {far_exact:.5f} of the farthest), indices "
+                           f"consistent {idx_ok}")
+    numbers = {"max_abs_err": err, "ms": ms, "warm_ms": warm_ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    if in_pass_ms is not None:
+        numbers["in_pass_ms"] = in_pass_ms
+    return numbers
+
+
+def _knn_entry(k: int, path: str, launches: int, numbers: dict) -> dict:
+    """A K-knn query kernel entry at ``k``, the gather size of ``path``,
+    which launched it ``launches`` times; ``list`` is `query_by_k`'s list
+    for k: ceil(k / 32) registers a lane, rounded up to 1, 2 or 4."""
+    regs = next(r for r in (1, 2, 4) if k <= 32 * r)
+    return {"name": f"knn_query_k{k}", "route": "cuda", "source": "rpt_tpu_torch/csrc/knn.cu",
+            "replaces": "rpt_tpu/accel/grid.py:605", "path": path,
+            "list": f"knn_query_kernel<WarpListR<{regs}>>", "launches": launches, **numbers}
+
+
+def _beside(prefix: str, numbers: dict) -> dict:
+    """A gather's numbers as side fields of another K-knn entry."""
+    return {f"{prefix}_{key}": numbers[key]
+            for key in ("max_abs_err", "ms", "warm_ms", "plain_ms", "bound_ms")}
+
+
+def _wavefronts(r, spp: int) -> int:
+    from rpt_tpu_torch.renderer import PIXEL_CHUNK
+
+    return spp * -(-r.width_ * r.height_ // PIXEL_CHUNK)
+
+
+def _misses(gathers) -> int:
+    """Queries at the origin of space: the gather point of a ray that hits
+    nothing (or, for the volume gather, whose collision lies past its hit)."""
+    return sum(int((q == 0).all(dim=1).sum()) for q, _ in gathers)
+
+
+def _in_pass_ms(gathers) -> float:
+    return sum(ms for _, ms in gathers) / len(gathers)
+
+
 def phase_photonmap(spp_cap):
     """The photon-map kind's main path at its example's parameters, then
-    K-knn at k = 100 on sample 0's surface gather points and at k = 30 on
-    its volume gather points (the sampled collisions) against brute force."""
+    K-knn on sample 0's gathers, captured from its camera pass: the surface
+    gather at k = 100 (its own), 50 (`Renderer`'s default), 64 and 128 (the
+    widest of two and four registers a lane), and the volume gather (the
+    sampled collisions) at k = 30, each against brute force. Returns
+    ``(numbers by k, launches by k)``."""
     import torch_volumetric_photonphoton_lampshade as ex
-    from rpt_tpu_torch import sampling
-    from rpt_tpu_torch.accel.knn import knn_plain, knn_query
-    from rpt_tpu_torch.renderer import PIXEL_CHUNK
 
     spp = _cut(ex.sample, spp_cap)
     r = ex.renderer("cuda", sample=spp, seed=0)
@@ -808,47 +985,68 @@ def phase_photonmap(spp_cap):
           f"sample); surface {c['surface']}, volume {c['volume']}, dropped {c['dropped']}; "
           f"image mean {img.mean():.4f} (radiance {r._last_buffer.raw().mean():.5f}), finite "
           f"{finite}; launches {launches}")
-    wavefronts = spp * -(-r.width_ * r.height_ // PIXEL_CHUNK)
+    wavefronts = _wavefronts(r, spp)
     want = {r.gather_size_: wavefronts, r.gather_size_volume_: wavefronts}
     if launches["knn_query_by_k"] != want or launches["knn_query"] != 2 * wavefronts:
         raise RuntimeError(f"K-knn launched {launches['knn_query_by_k']}, not {want}")
     if launches["sphere_sweep"] or launches["knn_radius"]:
         raise RuntimeError("the photon-map render launched K-sweep or the radius pass")
 
-    scene, pmap = r.compiled, r.photon_map
-    medium = scene.media[0]
-    ray, ekeys, hit = _sample0(r)
-    surface_q = torch.where(hit.valid[:, None], ray.at(hit.time).to_array(), 0.0).contiguous()
-    d, _, _ = medium.sample_d(ray, sampling.fold(ekeys, 0x7))
-    in_volume = ~hit.valid | (d < hit.time)
-    volume_q = torch.where(in_volume[:, None], ray.at(d).to_array(), 0.0).contiguous()
-    entries = []
-    for label, grid, q, k in (
-            (f"surface gather ({int((~hit.valid).sum())} misses at the origin)",
-             pmap.surface_grid, surface_q, r.gather_size_),
-            (f"volume gather ({int(in_volume.sum())} collisions before the hit)",
-             pmap.volume_grid, volume_q, r.gather_size_volume_)):
-        same, exact, err, idx_ok = _knn_compare(grid, q, k)
-        ms = _time_ms(lambda: knn_query(grid, q, k), 5)
-        plain_ms = _time_ms(lambda: knn_plain(grid.points, q, k), 1)
-        # as the point-beam gather's bound: rows, codes and queries read
-        # once, indices and distances written once; 8 operations a distance
-        bound_ms, bound_by = _bound(_nbytes(grid.rows, grid.codes, q) + q.shape[0] * k * 8,
-                                    q.shape[0] * k * 8)
-        print(f"[photonmap] K-knn {label}: {q.shape[0]} queries x {grid.n} points, k={k}: rows "
-              f"agreeing {same:.5f} (bit-equal {exact:.5f}), max abs err {err:.3e}, indices "
-              f"consistent {idx_ok}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-              f"{bound_ms * 1e3:.1f} us ({bound_by}), {ms / bound_ms:.1f}x")
-        if same < 1.0 or exact < KNN_ROW_AGREEMENT or not idx_ok:
-            raise RuntimeError(f"K-knn at k={k} agrees with brute force on {same:.5f} of rows "
-                               f"(bit-equal {exact:.5f}), indices consistent {idx_ok}")
-        entries.append({"name": f"knn_query_k{k}", "route": "cuda",
-                        "source": "rpt_tpu_torch/csrc/knn.cu",
-                        "replaces": "rpt_tpu/accel/grid.py:605", "path": "photonmap",
-                        "launches": launches["knn_query_by_k"][k], "max_abs_err": err, "ms": ms,
-                        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                        "library_ms": None})
-    return entries
+    pmap = r.photon_map
+    gathers = _capture_gathers(r)
+    surface = gathers[("surface", r.gather_size_)]
+    volume = gathers[("volume", r.gather_size_volume_)]
+    label = f"[photonmap] K-knn surface gather ({_misses(surface)} misses at the origin)"
+    qs = [q for q, _ in surface]
+    numbers = {r.gather_size_: _gather_case(label, pmap.surface_grid, qs, r.gather_size_,
+                                            _in_pass_ms(surface))}
+    for k in (50, 64, 128):
+        numbers[k] = _gather_case(label, pmap.surface_grid, qs, k)
+    numbers[r.gather_size_volume_] = _gather_case(
+        f"[photonmap] K-knn volume gather ({_misses(volume)} at the origin: no collision before "
+        f"the hit)", pmap.volume_grid, [q for q, _ in volume], r.gather_size_volume_,
+        _in_pass_ms(volume))
+    return numbers, launches["knn_query_by_k"]
+
+
+def phase_photonmap_default(spp_cap):
+    """`examples/torch_photon_map.py` at its full size (512^2, 10 spp, 10M
+    photons, 5 bounces) with `Renderer`'s default gather, 50 / 50: the
+    scene has no medium, so each of a sample's 16 wavefronts launches K-knn
+    once, at k = 50 over the surface photons, and nothing else of the
+    hand-written kernels. Then K-knn at k = 50 on sample 0's 16 gathers,
+    captured from its camera pass: each timed, the first held to brute
+    force. Returns ``(numbers, launches by k)``."""
+    import torch_photon_map as ex
+
+    spp = _cut(ex.sample, spp_cap)
+    r = ex.renderer("cuda", sample=spp)
+    _zero_counts()
+    img = r.photon_map_render(ex.photons)
+    launches = _read_counts()
+    s, c = r.phase_seconds, r.photon_counts
+    finite = _check_image("photon_map.py render", r, img)
+    raw = r._last_buffer.raw()
+    note = "" if spp == ex.sample else f" (spp lowered from {ex.sample} to {spp})"
+    print(f"[photonmap-default] {r.width_}x{r.height_} {spp} spp{note}, {ex.photons} photons, "
+          f"{r.max_bounces_} bounces, gather {r.gather_size_} / {r.gather_size_volume_}: shoot "
+          f"{s['shoot']:.3f} s, build {s['build']:.3f} s, trace {s['trace']:.3f} s "
+          f"({s['trace'] / spp * 1e3:.1f} ms a sample); surface photons {c['surface']} "
+          f"({_nbytes(r.photon_map.surface) / 2**30:.2f} GiB of rows), volume {c['volume']}, "
+          f"dropped {c['dropped']}; image mean {img.mean():.4f} (radiance {raw.mean():.3e}, "
+          f"non-black {bool(raw.max() > 0)}), finite {finite}; launches {launches}")
+    wavefronts = _wavefronts(r, spp)
+    want = {r.gather_size_: wavefronts}
+    if launches["knn_query_by_k"] != want or launches["knn_query"] != wavefronts:
+        raise RuntimeError(f"K-knn launched {launches['knn_query_by_k']}, not {want}")
+    if any(n for name, n in launches.items() if name not in ("knn_query", "knn_query_by_k")):
+        raise RuntimeError(f"the photon_map.py render launched another kernel: {launches}")
+
+    surface = _capture_gathers(r)[("surface", r.gather_size_)]
+    numbers = _gather_case(f"[photonmap-default] K-knn surface gather, sample 0 "
+                           f"({_misses(surface)} misses at the origin)", r.photon_map.surface_grid,
+                           [q for q, _ in surface], r.gather_size_, _in_pass_ms(surface))
+    return numbers, launches["knn_query_by_k"]
 
 
 def _beams_reference(beams, medium, o, d, hit_time):
@@ -899,7 +1097,6 @@ def phase_beambeam(spp_cap):
     import torch_volumetric_beambeam_lampshade as ex
     from rpt_tpu_torch.integrators.photon import volume_estimate_beams
     from rpt_tpu_torch.ray import Ray
-    from rpt_tpu_torch.renderer import PIXEL_CHUNK
 
     spp = _cut(ex.sample, spp_cap)
     r = ex.renderer("cuda", sample=spp, seed=0)
@@ -915,7 +1112,7 @@ def phase_beambeam(spp_cap):
           f"{s['trace']:.3f} s ({s['trace'] / spp * 1e3:.1f} ms a sample); surface "
           f"{c['surface']}, volume {c['volume']}, beams kept {beams.n_beams}; image mean "
           f"{img.mean():.4f}, finite {finite}; launches {launches}")
-    wavefronts = spp * -(-r.width_ * r.height_ // PIXEL_CHUNK)
+    wavefronts = _wavefronts(r, spp)
     if launches["knn_query_by_k"] != {r.gather_size_: wavefronts}:
         raise RuntimeError(f"K-knn launched {launches['knn_query_by_k']}, not one surface gather "
                            f"per wavefront ({wavefronts})")
@@ -1061,8 +1258,8 @@ def phase_golden_media():
 def main():
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU")
     parser.add_argument("--spp", type=int, default=None,
-                        help="cap on the camera samples of the three full-size photon renders "
-                             "(their examples' 50, 100 and 50 when left out)")
+                        help="cap on the camera samples of the four full-size photon renders "
+                             "(their examples' 50, 100, 10 and 50 when left out)")
     parser.add_argument("--vol-spp", type=int, default=40,
                         help="camera samples of the volumetric path render (the example's 1000 "
                              "would take about half an hour)")
@@ -1086,7 +1283,17 @@ def main():
         k["launches"] = path_launches[k["name"]]
     kernels += traverse
     phase_golden_path()
-    kernels += phase_photonmap(args.spp)
+    lampshade, lampshade_by_k = phase_photonmap(args.spp)
+    default, default_by_k = phase_photonmap_default(args.spp)
+    # one entry a main path's gather, its launches that path's at its k;
+    # the gathers at a k no path takes (64, 128) and k = 50 on the
+    # lampshade's queries ride as side fields of the entry of their list
+    kernels.append(_knn_entry(50, "photonmap-default", default_by_k[50],
+                              {**default, **_beside("lampshade", lampshade[50]),
+                               **_beside("k64_lampshade", lampshade[64])}))
+    kernels.append(_knn_entry(100, "photonmap", lampshade_by_k[100],
+                              {**lampshade[100], **_beside("k128", lampshade[128])}))
+    kernels.append(_knn_entry(30, "photonmap", lampshade_by_k[30], lampshade[30]))
     kernels[1]["beambeam_launches"] = phase_beambeam(args.spp)
     phase_directional_sweep(r)
     phase_volpath(args.vol_spp)

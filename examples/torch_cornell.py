@@ -60,14 +60,14 @@ def renderer(device="cuda", size=48, spp=24, seed=42) -> rpt.Renderer:
 
 
 def main():
-    import torch
     from PIL import Image
 
-    device = "cuda" if torch.cuda.is_available() else "cpu"
     size, spp = 512, 500
-    # as the JAX examples: RPT_TPU_PREVIEW=<s> divides the resolution by s
-    # and caps the samples at RPT_TPU_PREVIEW_SAMPLES (4)
+    # on the card; as the JAX examples, RPT_TPU_PREVIEW=<s> makes a preview
+    # on the CPU: the resolution divided by s, the samples capped at
+    # RPT_TPU_PREVIEW_SAMPLES (4)
     preview = os.environ.get("RPT_TPU_PREVIEW")
+    device = "cpu" if preview else "cuda"
     if preview:
         size = max(8, size // max(1, int(preview)))
         spp = max(1, min(spp, int(os.environ.get("RPT_TPU_PREVIEW_SAMPLES", "4"))))

@@ -51,15 +51,14 @@ def renderer(device="cuda", size=WIDTH, spp=SPP, seed=0, scene=None) -> rpt.Rend
 
 
 def main():
-    import torch
     from PIL import Image
 
-    device = "cuda" if torch.cuda.is_available() else "cpu"
     size, spp, mesh = WIDTH, SPP, MESH
-    # as the JAX examples: RPT_TPU_PREVIEW=<s> divides the resolution by s,
-    # caps the samples at RPT_TPU_PREVIEW_SAMPLES (4) and takes a
-    # 4704-triangle mesh
+    # on the card; as the JAX examples, RPT_TPU_PREVIEW=<s> makes a preview
+    # on the CPU: the resolution divided by s, the samples capped at
+    # RPT_TPU_PREVIEW_SAMPLES (4) and a 4704-triangle mesh
     preview = os.environ.get("RPT_TPU_PREVIEW")
+    device = "cpu" if preview else "cuda"
     if preview:
         size = max(8, size // max(1, int(preview)))
         spp = max(1, min(spp, int(os.environ.get("RPT_TPU_PREVIEW_SAMPLES", "4"))))

@@ -34,14 +34,14 @@ def renderer(device="cuda", width=64, height=36, spp=16, seed=42) -> rpt.Rendere
 
 
 def main():
-    import torch
     from PIL import Image
 
-    device = "cuda" if torch.cuda.is_available() else "cpu"
     width, height, spp = 960, 540, 100
-    # as the JAX examples: RPT_TPU_PREVIEW=<s> divides the resolution by s
-    # and caps the samples at RPT_TPU_PREVIEW_SAMPLES (4)
+    # on the card; as the JAX examples, RPT_TPU_PREVIEW=<s> makes a preview
+    # on the CPU: the resolution divided by s, the samples capped at
+    # RPT_TPU_PREVIEW_SAMPLES (4)
     preview = os.environ.get("RPT_TPU_PREVIEW")
+    device = "cpu" if preview else "cuda"
     if preview:
         width, height = (max(8, v // max(1, int(preview))) for v in (width, height))
         spp = max(1, min(spp, int(os.environ.get("RPT_TPU_PREVIEW_SAMPLES", "4"))))

@@ -5,9 +5,11 @@ A second package beside the JAX reference `rpt_tpu`: the same scene API
 explicit device, and hand-written CUDA kernels for the hot loops
 (`rpt_tpu_torch/csrc`). It imports neither jax nor rpt_tpu.
 
-Ported so far: path tracing of scenes without media (``Renderer.render``,
-meshes of any size through the BVH kernels K1/K2) and the point-photon x
-beam-query photon path (``Renderer.photon_point_query_beam_render``).
+Every integrator of the reference runs: path tracing with and without
+media (``Renderer.render``, ``sample``, ``iterative_render``; meshes of
+any size through the BVH kernels K1/K2) and the three photon kinds
+(``photon_map_render``, ``photon_point_query_beam_render``,
+``photon_beam_query_beam_render``; K-knn and K-sweep).
 """
 
 from .buffer import Buffer, Filter  # noqa: F401

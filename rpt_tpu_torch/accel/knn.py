@@ -23,7 +23,8 @@ exact.
   same launches by their k.
 * `knn_radius` is the self-query of the radius pass: per grid point the
   k-th nearest distance^2, itself included, in one launch
-  (``knn_radius.launches``); on the CPU `knn_radius_plain`.
+  (``knn_radius.launches``), for k in `REGISTER_K`; on the CPU
+  `knn_radius_plain`.
 * `knn_levels_plain` and `radius_units_plain` are the kernels' walk and
   unit cut in torch ops, for the tests; `knn_query_counts` and
   `knn_radius_counts` launch the kernels' counting variants (levels, cells
@@ -42,8 +43,8 @@ import torch
 from ..ops import _build
 
 LEVELS = 16  # 2^16 finest cells an axis, 48-bit Morton codes (csrc/knn.cu kBits)
-MAX_K = 128  # compile-time bound of the kernel's top-k list
-REGISTER_K = (10, 20)  # the callers' k: a lane's list in registers, and the counting variants
+MAX_K = 128  # compile-time bound of the kernel's top-k list (csrc/knn.cu kMaxK)
+REGISTER_K = (10, 20)  # the self-query's k (csrc/knn.cu `rpt_knn_radius`), a lane's list in registers
 UNIT = 32  # most points of a self-query unit: one a lane of a warp (csrc/knn.cu kUnit)
 
 
@@ -274,7 +275,7 @@ def _check_queries(name: str, grid: PhotonGrid, queries: torch.Tensor, k: int) -
 
 def _check_k(name: str, grid: PhotonGrid, k: int, allowed=None) -> None:
     if allowed is not None and k not in allowed:
-        raise ValueError(f"{name}: k={k}, the counting variants exist for k in {allowed}")
+        raise ValueError(f"{name}: k={k}, the self-query kernel exists for k in {allowed}")
     if not 1 <= k <= MAX_K:
         raise ValueError(f"{name}: k={k} outside [1, {MAX_K}]")
     if grid.points.device.type not in ("cpu", "cuda"):
@@ -326,10 +327,10 @@ def knn_query(grid: PhotonGrid, queries: torch.Tensor, k: int):
 
 def knn_radius(grid: PhotonGrid, k: int) -> torch.Tensor:
     """Per grid point (grid order) the k-th nearest distance^2, itself
-    included; of a cloud of fewer than k points the largest. (P,) f32. A
-    grid on the CPU takes `knn_radius_plain`; one on the card launches
-    K-knn's self-query kernel, once."""
-    _check_k("knn_radius", grid, k)
+    included; of a cloud of fewer than k points the largest. (P,) f32; k
+    in `REGISTER_K`. A grid on the CPU takes `knn_radius_plain`; one on
+    the card launches K-knn's self-query kernel, once."""
+    _check_k("knn_radius", grid, k, REGISTER_K)
     if grid.points.device.type == "cpu":
         return knn_radius_plain(grid, k)
     if grid.n == 0:
@@ -341,11 +342,10 @@ def knn_radius(grid: PhotonGrid, k: int) -> torch.Tensor:
 
 
 def knn_query_counts(grid: PhotonGrid, queries: torch.Tensor, k: int) -> torch.Tensor:
-    """The counting variant of `knn_query`'s kernel (k in `REGISTER_K`, on
-    the card): per query ``(levels scanned, cells looked up, candidates
-    tested, start level)``, (n, 4) int32."""
+    """The counting variant of `knn_query`'s kernel (any k in [1,
+    `MAX_K`], on the card): per query ``(levels scanned, cells looked up,
+    candidates tested, start level)``, (n, 4) int32."""
     _check_queries("knn_query_counts", grid, queries, k)
-    _check_k("knn_query_counts", grid, k, REGISTER_K)
     counts = torch.zeros((queries.shape[0], 4), dtype=torch.int32, device=queries.device)
     if queries.shape[0] and grid.n:
         _build.check(_launch_query(grid, queries, k, counts)[0], "knn_query_counts")

@@ -47,12 +47,11 @@
 //   of one neighbour cell each, a prefix over the small runs makes them
 //   one list that the warp reads 32 rows at a time (coalesced 16-byte
 //   loads), a candidate a lane. The k nearest so far are ONE sorted list
-//   across the warp's lanes (entry j in lane j's registers, k <= 32): a
-//   candidate under the k-th distance is inserted by a ballot and a
-//   shuffle, so the k-th distance is always exact and culls at once. A
-//   camera gather of 16,384 queries fills the card, and no query waits
-//   for one thread's scan. Larger k (to 128) keeps a list per lane in
-//   local memory and merges them by k rounds of a warp minimum.
+//   across the warp's lanes, ceil(k / 32) registers a lane (entry j in
+//   lane j & 31, slot j >> 5; k <= 128): a candidate under the k-th
+//   distance is inserted by ballots and one shuffle a slot, so the k-th
+//   distance is always exact and culls at once. A camera gather of 16,384
+//   queries fills the card, and no query waits for one thread's scan.
 // * Self-queries by cell (`knn_radius`): the queries are the grid's own
 //   points in cell order. A block takes 128 consecutive points and cuts
 //   them into units, the coarsest cells that hold at most kUnit (32)
@@ -165,13 +164,13 @@ __device__ __forceinline__ float dist2(const float4& p, float qx, float qy, floa
 template <int K>
 struct RegTopK {
     float d[K];
-    __device__ __forceinline__ void reset(int) {
+    __device__ __forceinline__ void reset() {
 #pragma unroll
         for (int s = 0; s < K; ++s) d[s] = CUDART_INF_F;
     }
-    __device__ __forceinline__ float worst(int) const { return d[K - 1]; }
+    __device__ __forceinline__ float worst() const { return d[K - 1]; }
     // v < worst(): v sinks to its place, every later entry moves one down
-    __device__ __forceinline__ void insert(float v, int, int) {
+    __device__ __forceinline__ void insert(float v) {
 #pragma unroll
         for (int s = 0; s < K; ++s) {
             const float lower = fminf(v, d[s]);
@@ -180,47 +179,10 @@ struct RegTopK {
         }
     }
     // the k-th distance^2, or the largest finite one of a smaller cloud
-    __device__ __forceinline__ float kth_or_last(int) const {
+    __device__ __forceinline__ float kth_or_last() const {
         float r = 0.f;
 #pragma unroll
         for (int s = 0; s < K; ++s) r = d[s] < CUDART_INF_F ? d[s] : r;
-        return r;
-    }
-};
-
-// Any k <= KMAX, the list in local memory.
-template <int KMAX>
-struct LocalTopK {
-    float d[KMAX];
-    int i[KMAX];
-    __device__ void reset(int k) {
-        for (int s = 0; s < k; ++s) {
-            d[s] = CUDART_INF_F;
-            i[s] = -1;
-        }
-    }
-    __device__ float worst(int k) const { return d[k - 1]; }
-    __device__ void insert(float v, int vi, int k) {
-        int s = k - 1;
-        while (s > 0 && d[s - 1] > v) {
-            d[s] = d[s - 1];
-            i[s] = i[s - 1];
-            --s;
-        }
-        d[s] = v;
-        i[s] = vi;
-    }
-    __device__ void pop(int k) {
-        for (int s = 0; s + 1 < k; ++s) {
-            d[s] = d[s + 1];
-            i[s] = i[s + 1];
-        }
-        d[k - 1] = CUDART_INF_F;
-        i[k - 1] = -1;
-    }
-    __device__ float kth_or_last(int k) const {
-        float r = 0.f;
-        for (int s = 0; s < k; ++s) r = d[s] < CUDART_INF_F ? d[s] : r;
         return r;
     }
 };
@@ -316,19 +278,36 @@ __device__ __forceinline__ float cell_gap2(const Grid& g, const Query& q, long l
            gap2(q.z, z, z + hl, g.slack);
 }
 
-// One query's k nearest so far as one sorted list over the warp's lanes:
-// lane j holds entry j (k <= 32). Every call is made by the whole warp.
-struct WarpList {
-    float d;
-    int i;
+// One query's k nearest so far (k <= 32 R) as one sorted list over the
+// warp's lanes: R entries a lane, entry j in lane j & 31, slot j >> 5.
+// Slots are compile-time indices after unrolling, so the list stays in
+// registers; the k-th distance is exact, so it culls at once. Every call
+// is made by the whole warp.
+template <int R>
+struct WarpListR {
+    float d[R];
+    int i[R];
     __device__ __forceinline__ void reset(int) {
-        d = CUDART_INF_F;
-        i = -1;
+#pragma unroll
+        for (int s = 0; s < R; ++s) {
+            d[s] = CUDART_INF_F;
+            i[s] = -1;
+        }
     }
-    // the k-th distance^2 so far: no farther point can be among the k nearest
-    __device__ __forceinline__ float bound(int k) const { return __shfl_sync(kFull, d, k - 1); }
-    // each lane offers one candidate (live: it has one)
+    // the k-th distance^2 so far: slot (k-1) >> 5 of lane (k-1) & 31
+    __device__ __forceinline__ float bound(int k) const {
+        const int slot = (k - 1) >> 5;
+        float v = d[0];
+#pragma unroll
+        for (int s = 1; s < R; ++s) v = slot == s ? d[s] : v;
+        return __shfl_sync(kFull, v, (k - 1) & 31);
+    }
+    // each lane offers one candidate (live: it has one); one at a time, a
+    // candidate under the bound goes in at the count of entries <= it and
+    // every later entry moves one place down
     __device__ __forceinline__ void offer(float v, int vi, bool live, int k, float cap2) {
+        const int lane = threadIdx.x & 31;
+        const int from = (lane + 31) & 31;
         float b = bound(k);
         unsigned m = __ballot_sync(kFull, live && v < b && v <= cap2);
         while (m) {
@@ -337,75 +316,63 @@ struct WarpList {
             const float cv = __shfl_sync(kFull, v, src);
             const int ci = __shfl_sync(kFull, vi, src);
             if (!(cv < b)) continue;
-            const int pos = __popc(__ballot_sync(kFull, d <= cv));
-            const float up_d = __shfl_up_sync(kFull, d, 1);
-            const int up_i = __shfl_up_sync(kFull, i, 1);
-            const int lane = threadIdx.x & 31;
-            if (lane > pos) {
-                d = up_d;
-                i = up_i;
-            } else if (lane == pos) {
-                d = cv;
-                i = ci;
+            int pos = 0;
+#pragma unroll
+            for (int s = 0; s < R; ++s) pos += __popc(__ballot_sync(kFull, d[s] <= cv));
+            // every old entry is read before any is written: lane l takes
+            // lane l - 1's entry of its slot, lane 0 lane 31's of the slot
+            // before
+            float rd[R];
+            int ri[R];
+#pragma unroll
+            for (int s = 0; s < R; ++s) {
+                rd[s] = __shfl_sync(kFull, d[s], from);
+                ri[s] = __shfl_sync(kFull, i[s], from);
+            }
+#pragma unroll
+            for (int s = 0; s < R; ++s) {
+                const int e = 32 * s + lane;
+                const int up = s > 0 ? s - 1 : 0;
+                const float pd = lane == 0 ? rd[up] : rd[s];
+                const int pi = lane == 0 ? ri[up] : ri[s];
+                if (e > pos) {
+                    d[s] = pd;
+                    i[s] = pi;
+                } else if (e == pos) {
+                    d[s] = cv;
+                    i[s] = ci;
+                }
             }
             b = bound(k);
         }
     }
-    // the sorted result: lane r writes entry r; returns the k-th distance^2
+    // the sorted result: entry s * 32 + lane from each slot (coalesced);
+    // returns the k-th distance^2
     __device__ __forceinline__ float finish(int k, int* idx, float* d2) {
         const int lane = threadIdx.x & 31;
-        if (idx && lane < k) {
-            idx[lane] = i;
-            d2[lane] = d;
+        if (idx) {
+#pragma unroll
+            for (int s = 0; s < R; ++s) {
+                const int e = 32 * s + lane;
+                if (e < k) {
+                    idx[e] = i[s];
+                    d2[e] = d[s];
+                }
+            }
         }
         return bound(k);
     }
     // the largest finite distance^2 among the k
     __device__ __forceinline__ float last_finite(int k) const {
-        float r = ((threadIdx.x & 31) < k && d < CUDART_INF_F) ? d : 0.f;
+        const int lane = threadIdx.x & 31;
+        float r = 0.f;
+#pragma unroll
+        for (int s = 0; s < R; ++s)
+            if (32 * s + lane < k && d[s] < CUDART_INF_F) r = fmaxf(r, d[s]);
 #pragma unroll
         for (int o = 16; o > 0; o >>= 1) r = fmaxf(r, __shfl_xor_sync(kFull, r, o));
         return r;
     }
-};
-
-// Any k <= KMAX: every lane keeps the k nearest of the candidates it was
-// offered in local memory, and `finish` merges the 32 lists by k rounds of
-// the warp's least head. Its bound is only what one lane's list proves.
-template <int KMAX>
-struct LocalLists {
-    LocalTopK<KMAX> mine;
-    float last;
-    __device__ void reset(int k) { mine.reset(k); }
-    __device__ float bound(int k) const {
-        float b = mine.worst(k);
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) b = fminf(b, __shfl_xor_sync(kFull, b, o));
-        return b;
-    }
-    __device__ void offer(float v, int vi, bool live, int k, float cap2) {
-        if (live && v < mine.worst(k) && v <= cap2) mine.insert(v, vi, k);
-    }
-    __device__ float finish(int k, int* idx, float* d2) {
-        const int lane = threadIdx.x & 31;
-        float m = CUDART_INF_F;
-        last = 0.f;
-        for (int r = 0; r < k; ++r) {
-            m = mine.d[0];
-#pragma unroll
-            for (int o = 16; o > 0; o >>= 1) m = fminf(m, __shfl_xor_sync(kFull, m, o));
-            const int winner = __ffs(__ballot_sync(kFull, mine.d[0] == m)) - 1;
-            const int mi = __shfl_sync(kFull, mine.i[0], winner);
-            if (lane == winner) mine.pop(k);
-            if (idx && lane == 0) {
-                idx[r] = mi;
-                d2[r] = m;
-            }
-            if (m < CUDART_INF_F) last = m;
-        }
-        return m;
-    }
-    __device__ float last_finite(int) const { return last; }
 };
 
 // What the counting variants record per query.
@@ -603,8 +570,9 @@ constexpr int kUnitList = 2048;  // a unit scans its block together up to this m
 // The self-query: per point of the grid, the k-th nearest distance^2,
 // itself included (of a cloud of fewer than k points, the largest).
 // counts (the counting variant): levels scanned, cells looked up,
-// candidates tested, the points of its unit.
-template <class TopK, class List, bool kCount>
+// candidates tested, the points of its unit. A member's list is TopK; the
+// warp's fallback list one register a lane (k <= 32).
+template <class TopK, bool kCount>
 __global__ void __launch_bounds__(kThreads, 1)
 knn_radius_kernel(Grid g, int k, int want, float* __restrict__ out_d2,
                   int* __restrict__ counts) {
@@ -663,7 +631,7 @@ knn_radius_kernel(Grid g, int k, int want, float* __restrict__ out_d2,
         if (total <= kUnitList) {
             // the block's rows through shared memory, every member scanning all
             TopK top;
-            top.reset(k);
+            top.reset();
             int row = list_row(pre, run_a, pre - run_n, total, lane);
             float4 next = __ldg(g.rows + max(row, 0));
             for (int base = 0; base < total; base += 32) {
@@ -676,7 +644,7 @@ knn_radius_kernel(Grid g, int k, int want, float* __restrict__ out_d2,
 #pragma unroll 4
                     for (int j = 0; j < m; ++j) {
                         const float v = dist2(s_stage[warp][j], me.x, me.y, me.z);
-                        if (v < top.worst(k)) top.insert(v, 0, k);
+                        if (v < top.worst()) top.insert(v);
                     }
                 }
                 __syncwarp();
@@ -684,8 +652,8 @@ knn_radius_kernel(Grid g, int k, int want, float* __restrict__ out_d2,
             if (member) {
                 const Query q = make_query(g, me.x, me.y, me.z, 0, 0, 0);
                 const float cover2 = covered2(g, q, l, cx, cy, cz);
-                pending = !(cover2 == CUDART_INF_F || top.worst(k) <= cover2);
-                result = top.kth_or_last(k);
+                pending = !(cover2 == CUDART_INF_F || top.worst() <= cover2);
+                result = top.kth_or_last();
                 n = Counts{1, 27, total};
             }
         }
@@ -693,10 +661,10 @@ knn_radius_kernel(Grid g, int k, int want, float* __restrict__ out_d2,
         // warp takes them one at a time
         for (unsigned todo = __ballot_sync(kFull, pending); todo; todo &= todo - 1) {
             const int m = __ffs(todo) - 1;
-            List list;
+            WarpListR<1> list;
             Counts one{0, 0, 0};
             int start_level;
-            const float kth = warp_query<List, kCount>(
+            const float kth = warp_query<WarpListR<1>, kCount>(
                 g, __shfl_sync(kFull, me.x, m), __shfl_sync(kFull, me.y, m),
                 __shfl_sync(kFull, me.z, m), k, want, list, s_stack[warp], nullptr, nullptr, one,
                 start_level);
@@ -719,7 +687,7 @@ knn_radius_kernel(Grid g, int k, int want, float* __restrict__ out_d2,
     }
 }
 
-template <class TopK, class List, bool kCount>
+template <class List, bool kCount>
 cudaError_t launch_query(const Grid& g, const float* q, int nq, int k, int want, int* out_idx,
                          float* out_d2, int* counts, cudaStream_t st) {
     knn_query_kernel<List, kCount><<<(nq + kWarps - 1) / kWarps, kThreads, 0, st>>>(
@@ -727,47 +695,58 @@ cudaError_t launch_query(const Grid& g, const float* q, int nq, int k, int want,
     return cudaGetLastError();
 }
 
-template <class TopK, class List, bool kCount>
+// The warp's one list: ceil(k / 32) registers a lane, rounded up to one,
+// two or four.
+template <bool kCount>
+cudaError_t query_by_k(const Grid& g, const float* q, int nq, int k, int want, int* out_idx,
+                       float* out_d2, int* counts, cudaStream_t st) {
+    if (k <= 32)
+        return launch_query<WarpListR<1>, kCount>(g, q, nq, k, want, out_idx, out_d2, counts, st);
+    if (k <= 64)
+        return launch_query<WarpListR<2>, kCount>(g, q, nq, k, want, out_idx, out_d2, counts, st);
+    return launch_query<WarpListR<4>, kCount>(g, q, nq, k, want, out_idx, out_d2, counts, st);
+}
+
+template <class TopK, bool kCount>
 cudaError_t launch_radius(const Grid& g, int k, int want, float* out_d2, int* counts,
                           cudaStream_t st) {
-    knn_radius_kernel<TopK, List, kCount><<<(g.n + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+    knn_radius_kernel<TopK, kCount><<<(g.n + kThreads - 1) / kThreads, kThreads, 0, st>>>(
         g, k, want, out_d2, counts);
     return cudaGetLastError();
 }
 
+constexpr int kMaxK = 128;  // knn.py MAX_K
+
 }  // namespace
 
-// k = 10 and k = 20 keep a lane's list in registers (the self-query's
-// members); a warp's one list lies across its lanes' registers for k <= 32.
-// The counting variants (counts != nullptr: four ints per query) exist for
-// k = 10 and k = 20 only.
-#define RPT_KNN_DISPATCH(LAUNCH, ...)                                                           \
-    if (counts) {                                                                               \
-        if (k == 10) return static_cast<int>(LAUNCH<RegTopK<10>, WarpList, true>(__VA_ARGS__)); \
-        if (k == 20) return static_cast<int>(LAUNCH<RegTopK<20>, WarpList, true>(__VA_ARGS__)); \
-        return static_cast<int>(cudaErrorInvalidValue);                                         \
-    }                                                                                           \
-    if (k == 10) return static_cast<int>(LAUNCH<RegTopK<10>, WarpList, false>(__VA_ARGS__));    \
-    if (k == 20) return static_cast<int>(LAUNCH<RegTopK<20>, WarpList, false>(__VA_ARGS__));    \
-    if (k >= 1 && k <= 32)                                                                      \
-        return static_cast<int>(LAUNCH<LocalTopK<128>, WarpList, false>(__VA_ARGS__));          \
-    if (k >= 1 && k <= 128)                                                                     \
-        return static_cast<int>(LAUNCH<LocalTopK<128>, LocalLists<128>, false>(__VA_ARGS__));   \
-    return static_cast<int>(cudaErrorInvalidValue);
-
+// The query kernel and its counting variant (counts != nullptr: four ints
+// per query) for any k <= 128.
 extern "C" int rpt_knn_query(const float* rows, const long long* codes, int n, float ox, float oy,
                              float oz, float h, float inv_h, float slack, const float* queries,
                              int nq, int k, int want, int* out_idx, float* out_d2, int* counts,
                              void* stream) {
+    if (k < 1 || k > kMaxK) return static_cast<int>(cudaErrorInvalidValue);
     const Grid g{reinterpret_cast<const float4*>(rows), codes, n, ox, oy, oz, h, inv_h, slack};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    RPT_KNN_DISPATCH(launch_query, g, queries, nq, k, want, out_idx, out_d2, counts, st)
+    return static_cast<int>(counts ? query_by_k<true>(g, queries, nq, k, want, out_idx, out_d2,
+                                                      counts, st)
+                                   : query_by_k<false>(g, queries, nq, k, want, out_idx, out_d2,
+                                                       counts, st));
 }
 
+// The self-query and its counting variant for k = 10 and k = 20 (the
+// radius pass's k), a member's list in registers.
 extern "C" int rpt_knn_radius(const float* rows, const long long* codes, int n, float ox,
                               float oy, float oz, float h, float inv_h, float slack, int k,
                               int want, float* out_d2, int* counts, void* stream) {
     const Grid g{reinterpret_cast<const float4*>(rows), codes, n, ox, oy, oz, h, inv_h, slack};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    RPT_KNN_DISPATCH(launch_radius, g, k, want, out_d2, counts, st)
+    cudaError_t e = cudaErrorInvalidValue;
+    if (k == 10)
+        e = counts ? launch_radius<RegTopK<10>, true>(g, k, want, out_d2, counts, st)
+                   : launch_radius<RegTopK<10>, false>(g, k, want, out_d2, counts, st);
+    else if (k == 20)
+        e = counts ? launch_radius<RegTopK<20>, true>(g, k, want, out_d2, counts, st)
+                   : launch_radius<RegTopK<20>, false>(g, k, want, out_d2, counts, st);
+    return static_cast<int>(e);
 }

@@ -17,6 +17,7 @@ sys.path.insert(0, os.path.join(ROOT, "examples"))
 
 import torch_cornell  # noqa: E402
 import torch_dragon  # noqa: E402
+import torch_photon_map  # noqa: E402
 import torch_sphere  # noqa: E402
 import torch_volumetric_beambeam_lampshade as lampshade_beams  # noqa: E402
 import torch_volumetric_beamphoton_lampshade as lampshade  # noqa: E402
@@ -25,7 +26,7 @@ import torch_volumetric_photonphoton_lampshade as lampshade_map  # noqa: E402
 
 EXAMPLES = ("torch_volumetric_beamphoton_lampshade", "torch_volumetric_photonphoton_lampshade",
             "torch_volumetric_beambeam_lampshade", "torch_volumetric_pathtrace_lampshade",
-            "torch_dragon", "torch_sphere", "torch_cornell")
+            "torch_dragon", "torch_sphere", "torch_cornell", "torch_photon_map")
 
 
 def _modules():
@@ -86,11 +87,26 @@ def test_cuda_device_raises_without_a_card():
     # and of the examples' renderer helpers
     for make in (torch_sphere.renderer, torch_cornell.renderer, lampshade.renderer,
                  lampshade_map.renderer, lampshade_beams.renderer, lampshade_path.renderer,
-                 lambda: torch_dragon.renderer(scene=scene)):
+                 torch_photon_map.renderer, lambda: torch_dragon.renderer(scene=scene)):
         with pytest.raises(RuntimeError, match="cuda"):
             make()
     # the CPU is an explicit choice, and the renderer records it
     assert tr.Renderer(scene, tr.Camera(), device="cpu").device.type == "cpu"
+
+
+def test_examples_never_probe_for_a_card(monkeypatch):
+    """No torch example asks whether CUDA is available: a run is on the
+    card (and raises without one) unless it is a preview, which is on the
+    CPU by choice (`preview_cut`)."""
+    for name in EXAMPLES:
+        with open(os.path.join(ROOT, "examples", f"{name}.py")) as f:
+            assert "is_available" not in f.read(), name
+    monkeypatch.delenv("RPT_TPU_PREVIEW", raising=False)
+    assert lampshade.preview_cut(128, 50, 10**6) == (128, 50, 10**6, "cuda")
+    monkeypatch.setenv("RPT_TPU_PREVIEW", "32")
+    monkeypatch.setenv("RPT_TPU_PREVIEW_SAMPLES", "2")
+    monkeypatch.setenv("RPT_TPU_PREVIEW_PHOTONS", "2000")
+    assert lampshade.preview_cut(512, 10, 10**7) == (16, 2, 2000, "cpu")
 
 
 def test_sah_builder_source_is_the_ports_own_copy():
@@ -113,7 +129,7 @@ def test_sah_builder_source_is_the_ports_own_copy():
     assert body(src) == body(original) and b'extern "C"' in body(src)
 
 
-def test_path_tracing_is_not_ported_yet():
+def test_every_integrator_runs_on_the_cpu():
     """Every integrator is ported: `render()` works on the CPU (an 8x8
     sphere under a point light, 2 spp), with and without a medium, and so
     do the three photon kinds on a scene with an object light; nothing in

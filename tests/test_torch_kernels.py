@@ -15,7 +15,7 @@ import torch
 
 from rpt_tpu_torch.accel.bvh import build_bvh, pack_bvh
 from rpt_tpu_torch.accel.knn import (
-    LEVELS, UNIT, build_grid, cell_coords, cell_runs, knn_plain, knn_query, knn_query_counts,
+    LEVELS, REGISTER_K, UNIT, build_grid, cell_coords, cell_runs, knn_plain, knn_query, knn_query_counts,
     knn_radius, knn_radius_counts, knn_radius_plain, morton_code, radius_units_plain,
 )
 from rpt_tpu_torch.intersect import BVHTables
@@ -116,18 +116,21 @@ def test_radius_units_partition_the_points():
 
 def test_knn_wrappers_on_empty_clouds_and_bad_k():
     """An empty cloud builds, answers with no valid neighbour and an empty
-    radius list; k outside [1, MAX_K] is refused by both wrappers; on the
-    CPU neither wrapper launches anything."""
+    radius list; k outside [1, MAX_K] is refused by both wrappers, and the
+    radius pass takes only k in `REGISTER_K`; on the CPU neither wrapper
+    launches anything."""
     empty = build_grid(torch.zeros((0, 3)))
     before = (knn_query.launches, knn_radius.launches)
     idx, d2, valid = knn_query(empty, torch.zeros((3, 3)), 5)
     assert idx.shape == d2.shape == valid.shape == (3, 5) and not bool(valid.any())
     assert knn_radius(empty, 10).shape == (0,)
     grid = build_grid(torch.rand((50, 3), generator=torch.Generator().manual_seed(0)))
-    assert knn_radius(grid, 3).shape == (50,) and bool((knn_radius(grid, 1) == 0).all())
-    for k in (0, 129):
+    for k in REGISTER_K:
+        assert torch.equal(knn_radius(grid, k), knn_plain(grid.points, grid.points, k)[1][:, -1])
+    for k in (0, 1, 3, 129):
         with pytest.raises(ValueError):
             knn_radius(grid, k)
+    for k in (0, 129):
         with pytest.raises(ValueError):
             knn_query(grid, torch.zeros((2, 3)), k)
     assert (knn_query.launches, knn_radius.launches) == before
@@ -244,11 +247,13 @@ def test_knn_kernels_match_plain_on_card():
     card: a dense body with far outliers and coincident points (crowded
     cells are opened, units of every level, the crowded finest cell cut
     into runs), queries in the body, on the outliers and far outside, for
-    the register k (10, 20), a k of the warp list (12) and one of the
-    local-memory lists (50); and a cloud of fewer than k points. Sorted
-    d^2 bit-equal (the same rounded operations), indices distinct and at
-    their distances; each wrapper launches once per call and the counting
-    variants count no launch."""
+    the register k (10, 20), a k of the one-register warp list (12) and
+    one of the two-register list (50), the self-query at its k (10, 20;
+    10 beside the other two); and a cloud of fewer than k points.
+    Sorted d^2 bit-equal (the same rounded operations), indices distinct
+    and at their distances; each wrapper launches once per call, the
+    query's counting variant runs for every list (k = 20, 50, 100) and the
+    counting variants count no launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
     rng = np.random.default_rng(3)
@@ -262,7 +267,7 @@ def test_knn_kernels_match_plain_on_card():
     for k in (10, 20, 12, 50):
         before = (knn_query.launches, knn_radius.launches)
         idx, d2, valid = knn_query(grid, q, k)
-        radius = knn_radius(grid, k)
+        radius = knn_radius(grid, k if k in REGISTER_K else 10)
         assert (knn_query.launches, knn_radius.launches) == (before[0] + 1, before[1] + 1)
         _, d2p, _ = knn_plain(grid.points, q, k)
         assert valid.all() and torch.equal(d2, d2p)
@@ -270,10 +275,12 @@ def test_knn_kernels_match_plain_on_card():
         torch.testing.assert_close(at, d2, rtol=1e-5, atol=1e-6)
         ranked = torch.sort(idx, dim=1).values
         assert bool((ranked[:, 1:] != ranked[:, :-1]).all())
-        assert torch.equal(radius, knn_radius_plain(grid, k))
+        assert torch.equal(radius, knn_radius_plain(grid, k if k in REGISTER_K else 10))
     before = (knn_query.launches, knn_radius.launches)
-    counts = knn_query_counts(grid, q, 20)
-    assert counts.shape == (len(q), 4) and int(counts[:, 0].min()) >= 1
+    for k in (20, 50, 100):
+        counts = knn_query_counts(grid, q, k)
+        assert counts.shape == (len(q), 4) and int(counts[:, 0].min()) >= 1
+        assert int(counts[:, 2].min()) >= k  # every query tests at least k candidates
     counts = knn_radius_counts(grid, 10)
     assert counts.shape == (grid.n, 4) and int(counts[:, 3].max()) <= UNIT
     assert (knn_query.launches, knn_radius.launches) == before
@@ -285,7 +292,9 @@ def test_knn_kernels_match_plain_on_card():
     assert torch.equal(knn_radius(few, 10), knn_radius_plain(few, 10))
 
 
-GATHER_K = (30, 100)  # the photon-map example's volume and surface gather sizes
+# the photon-map lampshade's volume and surface gather sizes (30, 100),
+# `Renderer`'s default (50), and the two lists' widest k (64, 128)
+GATHER_K = (30, 50, 64, 100, 128)
 
 
 @pytest.mark.parametrize("k", GATHER_K)
@@ -317,11 +326,12 @@ def test_knn_plain_at_gather_sizes(k):
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", GATHER_K)
 def test_knn_query_at_gather_sizes_on_card(k):
-    """K-knn's query kernel at the photon-map kind's k (30: the warp list;
-    100: the lists in local memory) against brute force on the card, on
+    """K-knn's query kernel at the photon gathers' k (30: one register a
+    lane; 50, 64: two; 100, 128: four) against brute force on the card, on
     the body-with-outliers cloud of `test_knn_kernels_match_plain_on_card`:
     sorted d^2 bit-equal, indices distinct and at their distances, one
-    launch a call."""
+    launch a call; and on a cloud of fewer than k points, the padding
+    invalid."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
     rng = np.random.default_rng(3)
@@ -341,6 +351,11 @@ def test_knn_query_at_gather_sizes_on_card(k):
     torch.testing.assert_close(at, d2, rtol=1e-5, atol=1e-6)
     ranked = torch.sort(idx, dim=1).values
     assert bool((ranked[:, 1:] != ranked[:, :-1]).all())
+    few = build_grid(grid.points[: k - 7].contiguous())
+    _, d2, valid = knn_query(few, q[:64], k)
+    _, d2p, validp = knn_plain(few.points, q[:64], k)
+    assert torch.equal(d2, d2p) and torch.equal(valid, validp)
+    assert valid.sum(dim=1).tolist() == [k - 7] * 64
 
 
 def test_plain_traversal_matches_brute_force():

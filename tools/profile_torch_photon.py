@@ -1,13 +1,17 @@
 """Where the time of the port's photon renders goes.
 
     python3 tools/profile_torch_photon.py [--kind point_beam] [--spp 5]
-                                          [--photons 1000000] [--size 128]
-                                          [--device cuda]
+                                          [--photons N] [--size N]
+                                          [--device cuda] [--cornell]
 
 Runs the three phases of a lampshade photon example (``--kind``:
 `examples/torch_volumetric_beamphoton_lampshade.py` for ``point_beam``,
 `..._photonphoton_...` for ``photon_map``, `..._beambeam_...` for
-``beam_beam``; shoot, map build, camera pass) one after the other under
+``beam_beam``), or with ``--cornell`` of `examples/torch_photon_map.py`
+(the photon-map kind in a Cornell box with no medium, gather 50 / 50),
+at the example's own size and photon count unless ``--size`` and
+``--photons`` say otherwise (shoot, map build, camera pass) one after the
+other under
 `torch.profiler`, and prints for each phase its wall time, the time the
 device was busy (the union of its kernels' intervals on the device
 timeline), that share of the wall, the number of kernels launched, and
@@ -29,6 +33,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[:0] = [ROOT, os.path.join(ROOT, "examples")]
 
 import numpy as np  # noqa: E402
+import torch_photon_map  # noqa: E402
 import torch_volumetric_beambeam_lampshade  # noqa: E402
 import torch_volumetric_beamphoton_lampshade  # noqa: E402
 import torch_volumetric_photonphoton_lampshade  # noqa: E402
@@ -84,13 +89,19 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--kind", default=ph.POINT_BEAM, choices=sorted(EXAMPLES))
-    parser.add_argument("--size", type=int, default=128)
-    parser.add_argument("--photons", type=int, default=1_000_000)
+    parser.add_argument("--cornell", action="store_true",
+                        help="examples/torch_photon_map.py (the photon-map kind)")
+    parser.add_argument("--size", type=int, default=None)
+    parser.add_argument("--photons", type=int, default=None)
     parser.add_argument("--spp", type=int, default=5)
     args = parser.parse_args()
 
-    ex = EXAMPLES[args.kind]
-    # the photon-map example's watts do not scale with the photon count
+    ex = torch_photon_map if args.cornell else EXAMPLES[args.kind]
+    if args.cornell:
+        args.kind = ph.PHOTON_MAP
+    args.size = args.size or ex.size
+    args.photons = args.photons or ex.photons
+    # the photon-map examples' watts do not scale with the photon count
     scaled = {} if args.kind == ph.PHOTON_MAP else {"photons": args.photons}
     r = ex.renderer(args.device, size=args.size, sample=args.spp, **scaled)
     scene, dev = r.compiled, r.device
@@ -99,7 +110,8 @@ def main():
 
         _build.library()
     key = sampling.key(r.seed_, dev)
-    print(f"profile: lampshade {args.kind} {args.size}^2, {args.photons} photons, gather "
+    print(f"profile: {'cornell' if args.cornell else 'lampshade'} {args.kind} {args.size}^2, "
+          f"{args.photons} photons, gather "
           f"{r.gather_size_} / {r.gather_size_volume_}, {args.spp} spp on "
           f"{torch.cuda.get_device_name(dev) if dev.type == 'cuda' else 'cpu'}")
     photons = _profiled("shoot", lambda: ph.shoot_photons_device(
