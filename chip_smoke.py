@@ -34,6 +34,21 @@ per source, in parallel) and drives every ported path end to end:
   torch ops, timed and held against a beam-by-beam float64 reference on
   256 lanes, and the sphere sweep of a medium whose phase depends on the
   directions (torch ops too) is timed on the point-beam render's spheres;
+- `examples/torch_pegasus.py` (`pegasus.py`) at its full size: the
+  100,138 triangles of `data/pegasus.obj` loaded by the port's loader, in
+  ice under the sky (`Hdri`; the procedural one, no `.hdr` being in the
+  repository), 1200x1200, 10 spp, 8 bounces; K1 is held against its plain
+  version on a camera chunk of sample 0 and on its level-1 and level-2
+  bounces (rays on and inside the ice), K2 on a sun-shadow wavefront built
+  from that chunk's hits (the scene has no light, so the path casts no
+  shadow ray), and `Hdri.get_color` on the card against the CPU on the
+  sample's misses;
+- `examples/torch_teapot.py` at its full size (800x800, the loaded
+  2,256-triangle teapot under a point light): K1 and K2 on its camera and
+  shadow wavefronts;
+- `examples/torch_marbles.py`'s first two frames (800x600, 9 bounces, the
+  samples cut by ``--spp``, 16 when left out) with one frame's RK4
+  integration of `MarblesSystem` between them, timed on the card;
 - the volumetric path tracer on the lampshade at its example's width
   through `iterative_render`, its 1000 samples cut by ``--vol-spp``;
 - the three media goldens (volumetric path, photon map, beam-beam).
@@ -45,7 +60,10 @@ captured from the render's own pass, with L2 evicted before each call (as
 between the render's launches) and warm; its bound counts the distinct
 points among its answers. A K-knn entry's launches are its path's
 gathers at its k; gathers that no path makes (k = 64 and 128, and k = 50
-on the lampshade) ride as side fields of the entry of their list.
+on the lampshade) ride as side fields of the entry of their list. The
+pegasus's and the teapot's K1/K2 numbers ride as side fields of the
+dragon's K1/K2 entries (``pegasus_*``, ``pegasus_bounce_*``,
+``pegasus_sun_shadow_*``, ``teapot_*``, with each path's launches).
 
 Every phase prints its lines; any failure raises and exits non-zero. The
 launch counts of each path are set to 0 just before it and read just
@@ -695,6 +713,75 @@ def _traverse_counts(label, any_hit, args, kwargs):
           f"warps {live_share:.4f}, of warps in lane order {lane_share:.4f}")
 
 
+def _k1_case(label, args, kwargs):
+    """K1 against its plain version on one captured wavefront (its line
+    and its counts printed): ``(numbers, share, attrs_ok)``, where
+    ``share`` is the lanes whose triangle agrees and ``attrs_ok`` says
+    whether t, u, v, w agree where it does (`HIT_RTOL`, `BARY_ATOL`)."""
+    from rpt_tpu_torch.ops.bvh_traverse import bvh_closest_hit, bvh_closest_hit_plain
+
+    got = bvh_closest_hit(*args, **kwargs)
+    ref, plain_ms = _events_ms(lambda: bvh_closest_hit_plain(*args, **kwargs))
+    ms = _time_ms(lambda: bvh_closest_hit(*args, **kwargs), 5)
+    same = got[1] == ref[1]
+    share = float(same.float().mean())
+    # t on every lane of an equal triangle (best_time where none is
+    # hit); u, v, w on the lanes that hit
+    t_ok = bool(torch.isclose(got[0][same], ref[0][same], rtol=HIT_RTOL, atol=0.0).all())
+    hit = same & (ref[1] >= 0)
+    errs = {}
+    for name, a, b in zip("tuvw", got[0:1] + got[2:], ref[0:1] + ref[2:]):
+        errs[name] = float((a[hit] - b[hit]).abs().max()) if bool(hit.any()) else 0.0
+    uvw_ok = all(bool(torch.isclose(a[hit], b[hit], rtol=HIT_RTOL, atol=BARY_ATOL).all())
+                 for a, b in zip(got[2:], ref[2:]))
+    print(f"[K1] {label} wavefront, {same.numel()} lanes "
+          f"({float((ref[1] >= 0).float().mean()):.4f} hit the mesh): tri equal on "
+          f"{share:.6f} ({int((~same).sum())} lanes differ); where tri agrees max abs err "
+          f"t {errs['t']:.3e} u {errs['u']:.3e} v {errs['v']:.3e} w {errs['w']:.3e}, "
+          f"t ok {t_ok}, u/v/w ok {uvw_ok}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    _traverse_counts(f"{label} wavefront", False, args, kwargs)
+    bound_ms, bound_by = _traverse_bound(args, kwargs, got)
+    numbers = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+               "max_abs_err": max(errs.values())}
+    return numbers, share, t_ok and uvw_ok
+
+
+def _k2_case(label, args, kwargs, t_min: float):
+    """K2 against its plain version on one captured shadow wavefront (its
+    line and its counts printed): ``(numbers, share)``."""
+    from rpt_tpu_torch.ops.bvh_traverse import bvh_any_hit, bvh_any_hit_plain
+
+    got = bvh_any_hit(*args, **kwargs)
+    ref, plain_ms = _events_ms(lambda: bvh_any_hit_plain(*args, **kwargs))
+    ms = _time_ms(lambda: bvh_any_hit(*args, **kwargs), 5)
+    # as `intersect.bvh_any_hit` passes them
+    limit = args[4]
+    active = args[5] if len(args) > 5 else kwargs.get("active")
+    gated = limit <= t_min
+    if active is not None:
+        gated = gated | ~active
+    share = float((got == ref).float().mean())
+    print(f"[K2] {label}, {got.numel()} lanes "
+          f"({int(gated.sum())} gated off: limit <= t_min or inactive; "
+          f"{float(ref.float().mean()):.4f} occluded): flag equal on {share:.6f} "
+          f"({int((got != ref).sum())} lanes differ); kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms")
+    _traverse_counts(label, True, args, kwargs)
+    bound_ms, bound_by = _traverse_bound(args, kwargs, (got,))
+    numbers = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+               "max_abs_err": float((got.float() - ref.float()).abs().max())}
+    return numbers, share
+
+
+def _check_traversal(worst: float, attrs_ok: bool, where: str):
+    if worst < TRAVERSE_AGREEMENT:
+        raise RuntimeError(f"K1/K2 agree with their plain versions on only {worst:.6f} "
+                           f"of lanes (< {TRAVERSE_AGREEMENT}) on {where}")
+    if not attrs_ok:
+        raise RuntimeError(f"K1's t, u, v or w disagree with its plain version where the "
+                           f"triangle agrees on {where}")
+
+
 def phase_traverse(r):
     """K1 on sample 0's camera and level-1 bounce wavefronts, K2 on its
     level-0 and level-1 batched shadow wavefronts (-1 limits included),
@@ -702,46 +789,21 @@ def phase_traverse(r):
     its t, u, v, w must too (`HIT_RTOL`, `BARY_ATOL`). The JSON entries
     carry the camera (K1) and level-1 (K2) times: most of level 0's shadow
     lanes are gated off and none is occluded."""
-    from rpt_tpu_torch.ops.bvh_traverse import (
-        bvh_any_hit, bvh_any_hit_plain, bvh_closest_hit, bvh_closest_hit_plain,
-    )
-
     calls = _capture_wavefronts(r)
-    worst, entries, attrs_ok = 1.0, [], True
+    worst, attrs_ok = 1.0, True
     k1 = {"name": "bvh_closest_hit", "route": "cuda", "source": "rpt_tpu_torch/csrc/bvh_traverse.cu",
           "replaces": "rpt_tpu/intersect.py:699", "max_abs_err": 0.0}
     for label, (args, kwargs) in (("camera", calls["bvh_closest_hit"][0]),
                                   ("level-1 bounce", calls["bvh_closest_hit"][1])):
-        got = bvh_closest_hit(*args, **kwargs)
-        ref, plain_ms = _events_ms(lambda: bvh_closest_hit_plain(*args, **kwargs))
-        ms = _time_ms(lambda: bvh_closest_hit(*args, **kwargs), 5)
-        same = got[1] == ref[1]
-        share = float(same.float().mean())
-        # t on every lane of an equal triangle (best_time where none is
-        # hit); u, v, w on the lanes that hit
-        t_ok = bool(torch.isclose(got[0][same], ref[0][same], rtol=HIT_RTOL, atol=0.0).all())
-        hit = same & (ref[1] >= 0)
-        errs = {}
-        for name, a, b in zip("tuvw", got[0:1] + got[2:], ref[0:1] + ref[2:]):
-            errs[name] = float((a[hit] - b[hit]).abs().max()) if bool(hit.any()) else 0.0
-        uvw_ok = all(bool(torch.isclose(a[hit], b[hit], rtol=HIT_RTOL, atol=BARY_ATOL).all())
-                     for a, b in zip(got[2:], ref[2:]))
-        attrs_ok = attrs_ok and t_ok and uvw_ok
-        print(f"[K1] {label} wavefront, {same.numel()} lanes "
-              f"({float((ref[1] >= 0).float().mean()):.4f} hit the mesh): tri equal on "
-              f"{share:.6f} ({int((~same).sum())} lanes differ); where tri agrees max abs err "
-              f"t {errs['t']:.3e} u {errs['u']:.3e} v {errs['v']:.3e} w {errs['w']:.3e}, "
-              f"t ok {t_ok}, u/v/w ok {uvw_ok}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-        _traverse_counts(f"{label} wavefront", False, args, kwargs)
-        worst = min(worst, share)
-        k1["max_abs_err"] = max(k1["max_abs_err"], *errs.values())
+        numbers, share, ok = _k1_case(label, args, kwargs)
+        worst, attrs_ok = min(worst, share), attrs_ok and ok
+        k1["max_abs_err"] = max(k1["max_abs_err"], numbers["max_abs_err"])
         if label == "camera":
-            k1["ms"], k1["plain_ms"] = ms, plain_ms
-            k1["bound_ms"], k1["bound_by"] = _traverse_bound(args, kwargs, got)
+            k1["ms"], k1["plain_ms"] = numbers["ms"], numbers["plain_ms"]
+            k1["bound_ms"], k1["bound_by"] = numbers["bound_ms"], numbers["bound_by"]
             k1["library_ms"] = None
         else:
-            k1["bounce_ms"], k1["bounce_plain_ms"] = ms, plain_ms
-    entries.append(k1)
+            k1["bounce_ms"], k1["bounce_plain_ms"] = numbers["ms"], numbers["plain_ms"]
 
     # level 0's shadow rays leave the convex-ish mesh unoccluded; level 1's
     # start mostly on the plane, where the mesh shadows them
@@ -749,37 +811,18 @@ def phase_traverse(r):
           "replaces": "rpt_tpu/intersect.py:767", "max_abs_err": 0.0}
     for level in (0, 1):
         args, kwargs = calls["bvh_any_hit"][level]
-        got = bvh_any_hit(*args, **kwargs)
-        ref, plain_ms = _events_ms(lambda: bvh_any_hit_plain(*args, **kwargs))
-        ms = _time_ms(lambda: bvh_any_hit(*args, **kwargs), 5)
-        limit, active = args[4], args[5]  # as `intersect.bvh_any_hit` passes them
-        gated = limit <= r.compiled.t_min
-        if active is not None:
-            gated = gated | ~active
-        share = float((got == ref).float().mean())
-        print(f"[K2] level-{level} batched shadow wavefront, {got.numel()} lanes "
-              f"({int(gated.sum())} gated off: limit <= t_min or inactive; "
-              f"{float(ref.float().mean()):.4f} occluded): flag equal on {share:.6f} "
-              f"({int((got != ref).sum())} lanes differ); kernel {ms:.3f} ms, plain "
-              f"{plain_ms:.3f} ms")
-        _traverse_counts(f"level-{level} batched shadow wavefront", True, args, kwargs)
+        numbers, share = _k2_case(f"level-{level} batched shadow wavefront", args, kwargs,
+                                  r.compiled.t_min)
         worst = min(worst, share)
-        k2["max_abs_err"] = max(k2["max_abs_err"],
-                                float((got.float() - ref.float()).abs().max()))
+        k2["max_abs_err"] = max(k2["max_abs_err"], numbers["max_abs_err"])
         if level == 1:
-            k2["ms"], k2["plain_ms"] = ms, plain_ms
-            k2["bound_ms"], k2["bound_by"] = _traverse_bound(args, kwargs, (got,))
+            k2["ms"], k2["plain_ms"] = numbers["ms"], numbers["plain_ms"]
+            k2["bound_ms"], k2["bound_by"] = numbers["bound_ms"], numbers["bound_by"]
             k2["library_ms"] = None
         else:
-            k2["level0_ms"], k2["level0_plain_ms"] = ms, plain_ms
-    entries.append(k2)
-    if worst < TRAVERSE_AGREEMENT:
-        raise RuntimeError(f"K1/K2 agree with their plain versions on only {worst:.6f} "
-                           f"of lanes (< {TRAVERSE_AGREEMENT})")
-    if not attrs_ok:
-        raise RuntimeError("K1's t, u, v or w disagree with its plain version where the "
-                           "triangle agrees")
-    return entries
+            k2["level0_ms"], k2["level0_plain_ms"] = numbers["ms"], numbers["plain_ms"]
+    _check_traversal(worst, attrs_ok, "the dragon")
+    return [k1, k2]
 
 
 def phase_golden_path():
@@ -944,6 +987,11 @@ def _beside(prefix: str, numbers: dict) -> dict:
     """A gather's numbers as side fields of another K-knn entry."""
     return {f"{prefix}_{key}": numbers[key]
             for key in ("max_abs_err", "ms", "warm_ms", "plain_ms", "bound_ms")}
+
+
+def _side(prefix: str, numbers: dict) -> dict:
+    """A K1/K2 case's times and bound as side fields of its kernel's entry."""
+    return {f"{prefix}_{key}": numbers[key] for key in ("ms", "plain_ms", "bound_ms")}
 
 
 def _wavefronts(r, spp: int) -> int:
@@ -1255,11 +1303,218 @@ def phase_golden_media():
         raise RuntimeError("media golden check failed")
 
 
+def _brightest_direction(hdri) -> torch.Tensor:
+    """The unit direction of an `Hdri`'s brightest texel (the sun of the
+    procedural sky), inverting `Hdri.get_color`'s mapping."""
+    lum = hdri._buf.sum(axis=2)
+    row, col = np.unravel_index(int(lum.argmax()), lum.shape)
+    polar = row / (hdri.height - 1) * np.pi
+    azimuth = col / (hdri.width - 1) * 2.0 * np.pi - np.pi
+    return torch.tensor([np.sin(polar) * np.cos(azimuth), np.cos(polar),
+                         np.sin(polar) * np.sin(azimuth)], dtype=torch.float32)
+
+
+def phase_pegasus(spp_cap):
+    """`examples/torch_pegasus.py` at its full size: `data/pegasus.obj`
+    loaded (100,138 triangles), 1200x1200, 10 spp (``--spp`` caps it), 8
+    bounces, the ice under the sky; one untimed warm-up sample, then
+    ``render()`` with the launch counts zeroed just before it and read just
+    after. The scene has no light but the sky, so the path casts no shadow
+    ray: K1 on every level, K2 never."""
+    sys.path.insert(0, os.path.join(ROOT, "examples"))
+    import _torch_assets
+    import torch_pegasus as ex
+    from rpt_tpu_torch import Buffer
+    from rpt_tpu_torch.renderer import RayCounter
+
+    t0 = time.perf_counter()
+    mesh = _torch_assets.get_mesh("pegasus")
+    t_load = time.perf_counter() - t0
+    spp = _cut(ex.SPP, spp_cap)
+    r = ex.renderer("cuda", sample=spp, scene=ex.build_scene(mesh))
+    compiled = r.compiled
+    torch.cuda.synchronize()
+    host, env = compiled.build_seconds, compiled.environment
+    print(f"[pegasus] data/pegasus.obj: {compiled.n_tris} triangles, loaded in {t_load:.3f} s; "
+          f"SAH build {host['sah']:.3f} s, pack {host['pack']:.3f} s; sky {env.height}x"
+          f"{env.width} (procedural: no .hdr in the repository)")
+    if compiled.n_tris != 100138:
+        raise RuntimeError(f"pegasus.obj gave {compiled.n_tris} triangles, not 100138")
+
+    r.sample(1, Buffer(r.width_, r.height_, r.filter_))
+    r._sample_index, r.ray_counter = 0, RayCounter()
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = r.render()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_counts()
+    segs, raw = r.ray_counter.segments, r._last_buffer.raw()
+    finite = _check_image("[pegasus]", r, img)
+    note = "" if spp == ex.SPP else f" (spp lowered from {ex.SPP} to {spp})"
+    print(f"[pegasus] {r.width_}x{r.height_} {spp} spp{note} {r.max_bounces_} bounces: wall "
+          f"{wall:.3f} s, {segs} ray segments ({segs / spp / r.width_ / r.height_:.2f} a path), "
+          f"{segs / wall / 1e6:.3f} Mrays/s; image mean {img.mean():.4f} (radiance "
+          f"{raw.mean():.5f}), top row {raw[0].mean():.5f}, finite {finite}; launches "
+          f"{launches}")
+    if raw[0].mean() <= 0:
+        raise RuntimeError("the sky does not show in the pegasus image's top row")
+    if launches["bvh_closest_hit"] <= 0:
+        raise RuntimeError("the pegasus render never launched bvh_closest_hit")
+    return r, launches
+
+
+def phase_pegasus_wavefronts(r):
+    """K1 on sample 0's camera wavefront (of the render's 262,144-lane
+    chunks, the one with the most mesh hits) and on its level-1 and level-2
+    bounces, whose rays start on and inside the ice; K2 on a sun-shadow
+    wavefront built here from that camera wavefront's hits toward the
+    sky's brightest texel (the path casts none: the scene has no light);
+    each against its plain version. Then `Hdri.get_color` on the card
+    against the same call on the CPU on sample 0's level-0 misses, and the
+    lookup timed over a chunk, as the path makes it on every lane of every
+    level."""
+    from rpt_tpu_torch import sampling
+    from rpt_tpu_torch.intersect import closest_hit
+    from rpt_tpu_torch.ops.bvh_traverse import _ray, bvh_closest_hit
+    from rpt_tpu_torch.renderer import camera_wavefront
+
+    scene, tables = r.compiled, r.compiled.tables
+    calls = _capture_wavefronts(r)["bvh_closest_hit"]
+    levels = r.max_bounces_ + 1
+    if len(calls) % levels:
+        raise RuntimeError(f"{len(calls)} K1 calls in sample 0 for {levels} levels a chunk")
+    cameras = calls[::levels]
+    hits = [int((bvh_closest_hit(*a, **k)[1] >= 0).sum()) for a, k in cameras]
+    c = int(np.argmax(hits))
+    print(f"[pegasus] sample 0: {len(cameras)} chunks x {levels} levels of K1 calls; mesh hits a "
+          f"camera chunk {hits}; chunk {c} held against the plain version")
+    worst, attrs_ok, out = 1.0, True, {}
+    for level, label in ((0, "camera"), (1, "level-1 bounce"), (2, "level-2 bounce")):
+        args, kwargs = calls[c * levels + level]
+        numbers, share, ok = _k1_case(f"pegasus {label}", args, kwargs)
+        worst, attrs_ok = min(worst, share), attrs_ok and ok
+        out[label] = numbers
+
+    # the sun-shadow wavefront: from the camera chunk's hits toward the sun
+    args, _ = cameras[c]
+    o, d = args[1], args[2]
+    hit = closest_hit(scene, tables, _ray(o, d))
+    pos = _ray(o, d).at(hit.time).to_array()
+    pos = torch.where(hit.valid[:, None], pos, torch.zeros_like(pos)).contiguous()
+    sun = _brightest_direction(scene.environment).to("cuda").expand_as(pos).contiguous()
+    limit = torch.where(hit.valid, 4.0 * scene.scale, -1.0).to(torch.float32).contiguous()
+    numbers, share = _k2_case("pegasus sun-shadow wavefront (built here: no light in the scene)",
+                              (args[0], pos, sun, scene.t_min, limit), {}, scene.t_min)
+    worst = min(worst, share)
+    out["shadow"] = numbers
+    _check_traversal(worst, attrs_ok, "the pegasus")
+
+    # the sky on the card against the CPU, on sample 0's level-0 misses
+    env = scene.environment
+    ray, _ = camera_wavefront(scene, r.camera, r.width_, r.height_,
+                              sampling.key(r.seed_, r.device), 0)
+    miss = ~closest_hit(scene, tables, ray).valid
+    dirs = ray.dir[miss]
+    got = env.get_color(tables["env"], dirs).to_array().cpu()
+    ref = env.get_color(env.tables("cpu"), dirs.map(lambda t: t.cpu())).to_array()
+    peak = float(env._buf.max())
+    ok = bool(torch.isclose(got, ref, rtol=1e-5, atol=1e-6 * peak).all())
+    chunk = ray.dir[:262144]
+    lookup_ms = _time_ms(lambda: env.get_color(tables["env"], chunk), 10)
+    print(f"[pegasus] Hdri.get_color on the card against the CPU on {dirs.shape[0]} level-0 "
+          f"misses of {miss.numel()} lanes: max abs err {float((got - ref).abs().max()):.3e} "
+          f"(map peak {peak:.2f}), within rtol 1e-5 / atol 1e-6 of the peak: {ok}; the lookup "
+          f"over a 262,144-lane chunk {lookup_ms:.3f} ms")
+    if not ok or not bool(miss.any()):
+        raise RuntimeError("Hdri.get_color on the card disagrees with the CPU")
+    return out
+
+
+def phase_teapot():
+    """`examples/torch_teapot.py` at its full size (800x800, 1 spp, no
+    bounce): `data/teapot.obj`, 2,256 triangles, under a point light, so
+    the path launches K1 for its camera rays and K2 for their shadow rays;
+    counts zeroed just before ``render()`` and read just after. Then K1 and
+    K2 on the first chunk's camera and shadow wavefronts against their
+    plain versions."""
+    import torch_teapot as ex
+
+    r = ex.renderer("cuda")
+    compiled = r.compiled
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = r.render()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_counts()
+    finite = _check_image("[teapot]", r, img)
+    print(f"[teapot] {compiled.n_tris} triangles, {r.width_}x{r.height_} {r.num_samples_} spp: "
+          f"wall {wall:.3f} s, image mean {img.mean():.4f}, finite {finite}; launches {launches}")
+    for name in ("bvh_closest_hit", "bvh_any_hit"):
+        if launches[name] <= 0:
+            raise RuntimeError(f"the teapot render never launched {name}")
+    calls = _capture_wavefronts(r)
+    k1, share1, ok = _k1_case("teapot camera", *calls["bvh_closest_hit"][0])
+    k2, share2 = _k2_case("teapot level-0 shadow wavefront", *calls["bvh_any_hit"][0],
+                          compiled.t_min)
+    _check_traversal(min(share1, share2), ok, "the teapot")
+    return launches, k1, k2
+
+
+def phase_marbles(spp_cap):
+    """`examples/torch_marbles.py`'s first two frames at 800x600 and 9
+    bounces, each with the launch counts zeroed just before its render and
+    read just after, its samples cut to ``--spp`` (16 when left out; the
+    example's 2000 would take minutes a frame); between the frames one
+    frame's RK4 integration of `MarblesSystem` on the card (625 steps of
+    1e-4 s and the remainder), timed. No mesh of the scene has more than
+    two triangles, so the path launches none of the hand-written kernels."""
+    import _torch_assets
+    import torch_marbles as ex
+    from rpt_tpu_torch import MarblesSystem
+
+    spp = _cut(ex.SPP, 16 if spp_cap is None else spp_cap)
+    state, system = ex.initial_state("cuda"), MarblesSystem(radius=ex.R)
+    hdri = _torch_assets.get_hdri("ballroom_8k")
+    start = state.pos.to_numpy()
+    for frame in range(2):
+        r = ex.renderer("cuda", ex.marble_positions(state), hdri, sample=spp)
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = r.render()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_counts()
+        finite = _check_image("[marbles]", r, img)
+        segs = r.ray_counter.segments
+        t0 = time.perf_counter()
+        state = system.rk4_integrate(state, ex.FRAME_TIME, ex.STEP)
+        torch.cuda.synchronize()
+        rk4 = time.perf_counter() - t0
+        moved = float(np.abs(state.pos.to_numpy() - start).max())
+        print(f"[marbles] frame {frame}: {r.width_}x{r.height_} {spp} spp (cut from the example's "
+              f"{ex.SPP}) {r.max_bounces_} bounces: wall {wall:.3f} s, {segs} ray segments, "
+              f"{segs / wall / 1e6:.3f} Mrays/s, image mean {img.mean():.4f}, finite {finite}; "
+              f"RK4 over the frame ({int(ex.FRAME_TIME / ex.STEP)} steps of {ex.STEP} s) "
+              f"{rk4:.3f} s on the card, marbles moved up to {moved:.4f} since frame 0; "
+              f"launches {launches}")
+        if not bool(state.pos.isfinite().all()) or moved <= 0:
+            raise RuntimeError("the marbles' RK4 state is not finite or did not move")
+        if any(v for v in launches.values()):
+            raise RuntimeError(f"the marbles' path launched a kernel: {launches}")
+
+
 def main():
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU")
     parser.add_argument("--spp", type=int, default=None,
                         help="cap on the camera samples of the four full-size photon renders "
-                             "(their examples' 50, 100, 10 and 50 when left out)")
+                             "and the pegasus (their examples' 50, 100, 10, 50 and 10 when left "
+                             "out) and of the two marbles frames (16 when left out; the "
+                             "example's 2000 would take minutes a frame)")
     parser.add_argument("--vol-spp", type=int, default=40,
                         help="camera samples of the volumetric path render (the example's 1000 "
                              "would take about half an hour)")
@@ -1283,6 +1538,24 @@ def main():
         k["launches"] = path_launches[k["name"]]
     kernels += traverse
     phase_golden_path()
+    r_pegasus, pegasus_launches = phase_pegasus(args.spp)
+    pegasus = phase_pegasus_wavefronts(r_pegasus)
+    del r_pegasus
+    teapot_launches, teapot_k1, teapot_k2 = phase_teapot()
+    # the slice's numbers ride as side fields of the dragon's K1/K2 entries
+    k1, k2 = traverse
+    k1.update(pegasus_launches=pegasus_launches["bvh_closest_hit"],
+              **_side("pegasus", pegasus["camera"]),
+              **_side("pegasus_bounce", pegasus["level-1 bounce"]),
+              teapot_launches=teapot_launches["bvh_closest_hit"], **_side("teapot", teapot_k1))
+    k2.update(pegasus_launches=pegasus_launches["bvh_any_hit"],
+              **_side("pegasus_sun_shadow", pegasus["shadow"]),
+              teapot_launches=teapot_launches["bvh_any_hit"], **_side("teapot", teapot_k2))
+    for k, numbers in ((k1, (pegasus["camera"], pegasus["level-1 bounce"],
+                             pegasus["level-2 bounce"], teapot_k1)),
+                       (k2, (pegasus["shadow"], teapot_k2))):
+        k["max_abs_err"] = max(k["max_abs_err"], *(n["max_abs_err"] for n in numbers))
+    phase_marbles(args.spp)
     lampshade, lampshade_by_k = phase_photonmap(args.spp)
     default, default_by_k = phase_photonmap_default(args.spp)
     # one entry a main path's gather, its launches that path's at its k;

@@ -60,7 +60,7 @@ def renderer(device="cuda", size=48, spp=24, seed=42) -> rpt.Renderer:
 
 
 def main():
-    from PIL import Image
+    from _torch_assets import save
 
     size, spp = 512, 500
     # on the card; as the JAX examples, RPT_TPU_PREVIEW=<s> makes a preview
@@ -77,7 +77,7 @@ def main():
     def callback(iteration, buffer):
         millis = int((time.time() - state["time"]) * 1000)
         print(f"Finished iteration {iteration}, took {millis} ms, variance: {buffer.variance()}")
-        Image.fromarray(buffer.image()).save(f"results/output_{iteration - 1:03d}.png")
+        save(buffer.image(), f"results/output_{iteration - 1:03d}.png")
         state["time"] = time.time()
 
     renderer(device, size, spp, 0).filter(rpt.Filter.Box(1)).iterative_render(10, callback)

@@ -51,7 +51,7 @@ def renderer(device="cuda", size=WIDTH, spp=SPP, seed=0, scene=None) -> rpt.Rend
 
 
 def main():
-    from PIL import Image
+    from _torch_assets import save
 
     size, spp, mesh = WIDTH, SPP, MESH
     # on the card; as the JAX examples, RPT_TPU_PREVIEW=<s> makes a preview
@@ -68,8 +68,7 @@ def main():
     c = r.ray_counter
     print(f"{c.segments} ray segments in {c.seconds:.3f} s: "
           f"{c.segments / c.seconds / 1e6:.2f} Mrays/s on {device}")
-    Image.fromarray(img).save("output.png")
-    print("saved output.png")
+    save(img, "output.png")
 
 
 if __name__ == "__main__":

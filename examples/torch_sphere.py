@@ -34,7 +34,7 @@ def renderer(device="cuda", width=64, height=36, spp=16, seed=42) -> rpt.Rendere
 
 
 def main():
-    from PIL import Image
+    from _torch_assets import save
 
     width, height, spp = 960, 540, 100
     # on the card; as the JAX examples, RPT_TPU_PREVIEW=<s> makes a preview
@@ -46,8 +46,7 @@ def main():
         width, height = (max(8, v // max(1, int(preview))) for v in (width, height))
         spp = max(1, min(spp, int(os.environ.get("RPT_TPU_PREVIEW_SAMPLES", "4"))))
     img = renderer(device, width, height, spp, 0).render()
-    Image.fromarray(img).save("output.png")
-    print("saved output.png")
+    save(img, "output.png")
 
 
 if __name__ == "__main__":

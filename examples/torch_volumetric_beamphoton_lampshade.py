@@ -7,7 +7,7 @@ The scene and camera are those of `examples/_lampshade.py`, built with
     python examples/torch_volumetric_beamphoton_lampshade.py
 """
 
-import os
+from _torch_assets import preview_cut, save  # noqa: F401 (the lampshade drivers import them here)
 
 import rpt_tpu_torch as rpt
 
@@ -106,30 +106,6 @@ def renderer(device="cuda", size=size, bounce=bounce, sample=sample, photons=pho
         .gather_size_volume(gather_size_volume)
         .seed(seed)
     )
-
-
-def preview_cut(size: int, sample: int, photons: int = 0):
-    """(resolution, samples, photons, device) of an example's run: its own
-    parameters on the card (raising where there is none). As with the JAX
-    examples, RPT_TPU_PREVIEW=<s> makes a preview, the tiny run
-    `tests/test_examples.py` makes of every example: on the CPU, the
-    resolution divided by s, samples capped at RPT_TPU_PREVIEW_SAMPLES (4)
-    and photons at RPT_TPU_PREVIEW_PHOTONS (5000)."""
-    preview = os.environ.get("RPT_TPU_PREVIEW")
-    if not preview:
-        return size, sample, photons, "cuda"
-    size = max(8, size // max(1, int(preview)))
-    sample = max(1, min(sample, int(os.environ.get("RPT_TPU_PREVIEW_SAMPLES", "4"))))
-    photons = min(photons, int(os.environ.get("RPT_TPU_PREVIEW_PHOTONS", "5000")))
-    return size, sample, photons, "cpu"
-
-
-def save(img, path: str):
-    from PIL import Image
-
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    Image.fromarray(img).save(path)
-    print(f"saved {path}")
 
 
 def main():

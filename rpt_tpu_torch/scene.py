@@ -19,7 +19,7 @@ import torch
 
 from .accel.bvh import build_bvh, pack_bvh
 from .dtypes import DTYPE, resolve_device
-from .environment import ColorEnvironment
+from .environment import ColorEnvironment, Hdri
 from .intersect import BVHTables, PlaneSet, PrimSet
 from .lights import (
     AmbientLight,
@@ -76,7 +76,7 @@ class Scene:
             self.lights.append(node)
         elif isinstance(node, Medium):
             self.media.append(node)
-        elif isinstance(node, ColorEnvironment):
+        elif isinstance(node, (ColorEnvironment, Hdri)):
             self.environment = node
         elif isinstance(node, tuple) and len(node) == 2 and isinstance(node[1], Material):
             geometry, material = node

@@ -147,6 +147,14 @@ class Vec3:
     def min_component(self) -> torch.Tensor:
         return torch.minimum(self.x, torch.minimum(self.y, self.z))
 
+    def minimum(self, o: "Vec3") -> "Vec3":
+        return Vec3(torch.minimum(self.x, o.x), torch.minimum(self.y, o.y),
+                    torch.minimum(self.z, o.z))
+
+    def maximum(self, o: "Vec3") -> "Vec3":
+        return Vec3(torch.maximum(self.x, o.x), torch.maximum(self.y, o.y),
+                    torch.maximum(self.z, o.z))
+
     def isfinite(self) -> torch.Tensor:
         return torch.isfinite(self.x) & torch.isfinite(self.y) & torch.isfinite(self.z)
 
@@ -158,6 +166,12 @@ def where(mask, a: Vec3, b: Vec3) -> Vec3:
         torch.where(mask, a.y, b.y),
         torch.where(mask, a.z, b.z),
     )
+
+
+def lerp(a: Vec3, b: Vec3, t) -> Vec3:
+    """glm::mix — linear interpolation (the HDRI's bilinear sample,
+    `environment.rs:39-51`)."""
+    return a + (b - a) * t
 
 
 def reflect(v: Vec3, n: Vec3) -> Vec3:

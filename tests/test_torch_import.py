@@ -1,5 +1,6 @@
 """The port stands alone: every `rpt_tpu_torch` module imports without
-jax or rpt_tpu, and a CUDA device is never silently replaced by the CPU."""
+jax, rpt_tpu, imageio or Pillow, and a CUDA device is never silently
+replaced by the CPU."""
 
 import os
 import pkgutil
@@ -17,8 +18,11 @@ sys.path.insert(0, os.path.join(ROOT, "examples"))
 
 import torch_cornell  # noqa: E402
 import torch_dragon  # noqa: E402
+import torch_marbles  # noqa: E402
+import torch_pegasus  # noqa: E402
 import torch_photon_map  # noqa: E402
 import torch_sphere  # noqa: E402
+import torch_teapot  # noqa: E402
 import torch_volumetric_beambeam_lampshade as lampshade_beams  # noqa: E402
 import torch_volumetric_beamphoton_lampshade as lampshade  # noqa: E402
 import torch_volumetric_pathtrace_lampshade as lampshade_path  # noqa: E402
@@ -26,7 +30,8 @@ import torch_volumetric_photonphoton_lampshade as lampshade_map  # noqa: E402
 
 EXAMPLES = ("torch_volumetric_beamphoton_lampshade", "torch_volumetric_photonphoton_lampshade",
             "torch_volumetric_beambeam_lampshade", "torch_volumetric_pathtrace_lampshade",
-            "torch_dragon", "torch_sphere", "torch_cornell", "torch_photon_map")
+            "torch_dragon", "torch_sphere", "torch_cornell", "torch_photon_map",
+            "torch_pegasus", "torch_teapot", "torch_marbles")
 
 
 def _modules():
@@ -41,7 +46,8 @@ def test_modules_import_without_jax():
     assert {"rpt_tpu_torch.integrators.photon", "rpt_tpu_torch.ops.sphere_sweep",
             "rpt_tpu_torch.accel.knn", "rpt_tpu_torch.renderer",
             "rpt_tpu_torch.integrators.path", "rpt_tpu_torch.ops.bvh_traverse",
-            "rpt_tpu_torch.meshes", "rpt_tpu_torch.medium"} <= set(names)
+            "rpt_tpu_torch.meshes", "rpt_tpu_torch.medium", "rpt_tpu_torch.io",
+            "rpt_tpu_torch.ode", "rpt_tpu_torch.environment"} <= set(names)
     found = {f[:-3] for f in os.listdir(os.path.join(ROOT, "examples"))
              if f.startswith("torch_") and f.endswith(".py")}
     assert found == set(EXAMPLES)
@@ -56,7 +62,10 @@ def test_modules_import_without_jax():
         "volume_estimate_point\n"
         "from rpt_tpu_torch import Medium\n"
         "assert callable(Medium.henyey_greenstein)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'rpt_tpu')]\n"
+        "import _torch_assets\n"
+        "_torch_assets.get_hdri('birchwood_8k')\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'rpt_tpu', 'imageio', 'PIL')]\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n"
     )
@@ -87,7 +96,10 @@ def test_cuda_device_raises_without_a_card():
     # and of the examples' renderer helpers
     for make in (torch_sphere.renderer, torch_cornell.renderer, lampshade.renderer,
                  lampshade_map.renderer, lampshade_beams.renderer, lampshade_path.renderer,
-                 torch_photon_map.renderer, lambda: torch_dragon.renderer(scene=scene)):
+                 torch_photon_map.renderer, lambda: torch_dragon.renderer(scene=scene),
+                 lambda: torch_pegasus.renderer(scene=scene), torch_teapot.renderer,
+                 torch_marbles.renderer, lambda: tr.ParticleState.of(np.zeros((1, 3)),
+                                                                    np.zeros((1, 3)))):
         with pytest.raises(RuntimeError, match="cuda"):
             make()
     # the CPU is an explicit choice, and the renderer records it

@@ -60,28 +60,59 @@ def _busy_ms(intervals) -> float:
     return busy / 1e3
 
 
-def _profiled(name, fn, device):
+def _kernels_under(event):
+    """(kernels, device us) launched under a host event and its children."""
+    n, us = len(event.kernels), sum(k.duration for k in event.kernels)
+    for child in event.cpu_children:
+        cn, cus = _kernels_under(child)
+        n, us = n + cn, us + cus
+    return n, us
+
+
+def _profiled(name, fn, device, annotations=(), samples=None):
     """Run ``fn`` once under the profiler; print the phase's line and its
-    top kernels; return ``fn``'s result."""
-    # device activity only: host-side op events would cost minutes to
-    # collect over the shoot's ~10^6 launches
+    top kernels; return ``fn``'s result. For each name in ``annotations``
+    (a `torch.profiler.record_function` range that ``fn`` opens), also
+    print its calls, its host time and the kernels launched under it with
+    their device time, against the phase's wall and device-busy time: host
+    op events are then recorded too. With ``samples``, also print the
+    kernels launched a sample."""
+    # device activity only unless ranges are asked for: host-side op events
+    # would cost minutes to collect over the shoot's ~10^6 launches
     acts = [ProfilerActivity.CUDA] if device.type == "cuda" else [ProfilerActivity.CPU]
+    if annotations and device.type == "cuda":
+        acts.append(ProfilerActivity.CPU)
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         out = fn()
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         wall = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = prof.events()
+    # a range's own device-side marker is not a kernel
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.name not in annotations]
     busy = _busy_ms((e.time_range.start, e.time_range.end) for e in kernels)
     by_name = collections.defaultdict(lambda: [0.0, 0])
     for e in kernels:
         by_name[e.name][0] += (e.time_range.end - e.time_range.start) / 1e3
         by_name[e.name][1] += 1
     print(f"== {name}: wall {wall:.1f} ms, device busy {busy:.1f} ms "
-          f"({100.0 * busy / wall:.1f}%), kernels launched {len(kernels)}")
+          f"({100.0 * busy / wall:.1f}%), kernels launched {len(kernels)}"
+          + (f" ({len(kernels) / samples:.0f} a sample)" if samples else ""))
     for kname, (ms, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
         print(f"   {ms:10.1f} ms {count:8d}x  {kname[:90]}")
+    for label in annotations:
+        ranges = [e for e in events if e.name == label
+                  and e.device_type == torch.autograd.DeviceType.CPU]
+        host = sum(e.time_range.elapsed_us() for e in ranges) / 1e3
+        n = us = 0
+        for e in ranges:
+            en, eus = _kernels_under(e)
+            n, us = n + en, us + eus
+        print(f"   range {label}: {len(ranges)} calls, host {host:.1f} ms "
+              f"({100.0 * host / wall:.1f}% of the wall), {n} kernels, device {us / 1e3:.1f} ms "
+              f"({100.0 * us / 1e3 / max(busy, 1e-9):.1f}% of the busy time)")
     return out
 
 
