@@ -30,6 +30,12 @@ per source, in parallel) and drives every ported path end to end:
   photons) at its full size with `Renderer`'s default gather, 50 / 50:
   K-knn at k = 50 (two registers a lane) once per wavefront over the
   surface photons, held against brute force on a wavefront's queries;
+- `examples/torch_skybox_photons.py` (`skybox_photons.py`: the open
+  foggy box under a sky, 256x256, 100 spp, 10M photons, gather 50 / 50)
+  at its full size: two K-knn gathers at k = 50 a wavefront, over the
+  surface photons and at the sampled collision over the volume photons,
+  both held against brute force on sample 0's queries; the pixels through
+  the ceiling's opening lit;
 - the beam x beam kind at its example's parameters; its beam estimate is
   torch ops, timed and held against a beam-by-beam float64 reference on
   256 lanes, and the sphere sweep of a medium whose phase depends on the
@@ -43,6 +49,12 @@ per source, in parallel) and drives every ported path end to end:
   from that chunk's hits (the scene has no light, so the path casts no
   shadow ray), and `Hdri.get_color` on the card against the CPU on the
   sample's misses;
+- `rpt_tpu_torch.parallel` at world size 1 over NCCL in this process
+  (`[sharded]`): ``render_sharded`` on the dragon at its full size, and
+  ``shoot_photons_sharded`` (1M photons) and ``photon_render_sharded`` on
+  the point-beam lampshade, each against the single-process pass (the
+  shoot bit for bit), with the launches of K1, K2, K-sweep and K-knn
+  that the sharded calls made;
 - `examples/torch_teapot.py` at its full size (800x800, the loaded
   2,256-triangle teapot under a point light): K1 and K2 on its camera and
   shadow wavefronts;
@@ -51,7 +63,9 @@ per source, in parallel) and drives every ported path end to end:
   integration of `MarblesSystem` between them, timed on the card;
 - the volumetric path tracer on the lampshade at its example's width
   through `iterative_render`, its 1000 samples cut by ``--vol-spp``;
-- the three media goldens (volumetric path, photon map, beam-beam).
+- the three media goldens (volumetric path, photon map, beam-beam);
+- 17 drivers that no other phase renders (`[drivers]`), each built by its
+  ``renderer("cuda")`` and cut to a quarter of its size and 2 spp.
 
 The counting variants of K-knn, K1 and K2 print what a query or a ray
 costs (levels, cells and candidates; steps, leaf slots and the warps'
@@ -63,7 +77,10 @@ gathers at its k; gathers that no path makes (k = 64 and 128, and k = 50
 on the lampshade) ride as side fields of the entry of their list. The
 pegasus's and the teapot's K1/K2 numbers ride as side fields of the
 dragon's K1/K2 entries (``pegasus_*``, ``pegasus_bounce_*``,
-``pegasus_sun_shadow_*``, ``teapot_*``, with each path's launches).
+``pegasus_sun_shadow_*``, ``teapot_*``, with each path's launches), as do
+the launches of the sharded calls (``sharded_launches``) and of the
+drivers (``drivers_launches``). The skybox's volume gather is an entry of
+its own (``knn_query_k50_volume``), its surface gather side fields of it.
 
 Every phase prints its lines; any failure raises and exits non-zero. The
 launch counts of each path are set to 0 just before it and read just
@@ -1097,6 +1114,247 @@ def phase_photonmap_default(spp_cap):
     return numbers, launches["knn_query_by_k"]
 
 
+def _opening_pixels(r) -> np.ndarray:
+    """The (H, W) mask of the skybox pixels whose sample-0 camera ray
+    leaves through the ceiling's opening: it misses every surface, or its
+    first hit lies above the ceiling (the light over the hole)."""
+    from rpt_tpu_torch import sampling
+    from rpt_tpu_torch.intersect import closest_hit
+    from rpt_tpu_torch.renderer import _pixel_grid, camera_wavefront
+
+    scene = r.compiled
+    ray, _ = camera_wavefront(scene, r.camera, r.width_, r.height_,
+                              sampling.fold_in(sampling.key(r.seed_, r.device), 2), 0)
+    hit = closest_hit(scene, scene.tables, ray)
+    y = ray.origin.y + ray.dir.y * torch.where(hit.valid, hit.time, 0.0)
+    out = (~hit.valid) | (y > 548.9 + 1e-3)
+    inv = torch.tensor(_pixel_grid(r.width_, r.height_)[3], device=out.device)
+    return out[inv].cpu().numpy().reshape(r.height_, r.width_)
+
+
+def phase_skybox_photons(spp_cap):
+    """`examples/torch_skybox_photons.py` at its full size (256^2, 100 spp,
+    10M photons, 10 bounces, `Renderer`'s default gather 50 / 50): the
+    photon map of the open foggy box under the sky, counts zeroed just
+    before ``photon_map_render`` and read just after. The scene has a
+    medium, so each wavefront gathers twice at k = 50: over the surface
+    photons and, at its sampled collision, over the volume photons. Its 20
+    triangles fill 3 leaf rows, under `intersect.DENSE_TRI_ROWS`, so they
+    take `dense_tri_hit` and launch no K1/K2. Then both gathers on sample
+    0's wavefronts, captured from its camera pass, against brute force.
+    Returns ``(volume numbers, surface numbers, launches a gather)``."""
+    import torch_skybox_photons as ex
+
+    spp = _cut(ex.SPP, spp_cap)
+    r = ex.renderer("cuda", sample=spp)
+    _zero_counts()
+    img = r.photon_map_render(ex.PHOTONS)
+    launches = _read_counts()
+    s, c = r.phase_seconds, r.photon_counts
+    finite = _check_image("[skybox-photons]", r, img)
+    raw = r._last_buffer.raw().mean(axis=2)
+    opening = _opening_pixels(r)
+    lit = float(raw[opening].mean()) if opening.any() else 0.0
+    bvh = r.compiled.tables["bvh"]
+    note = "" if spp == ex.SPP else f" (spp lowered from {ex.SPP} to {spp})"
+    print(f"[skybox-photons] {r.width_}x{r.height_} {spp} spp{note}, {ex.PHOTONS} photons, "
+          f"{r.max_bounces_} bounces, gather {r.gather_size_} / {r.gather_size_volume_}: shoot "
+          f"{s['shoot']:.3f} s, build {s['build']:.3f} s, trace {s['trace']:.3f} s "
+          f"({s['trace'] / spp * 1e3:.1f} ms a sample); surface photons {c['surface']}, volume "
+          f"{c['volume']} ({_nbytes(r.photon_map.volume) / 2**30:.2f} GiB of rows), deposits "
+          f"dropped at the capacities (4 and 10 a photon) {c['dropped']}; "
+          f"{r.compiled.n_tris} triangles in {bvh.leaves.shape[0]} leaf rows (dense_tri_hit); "
+          f"image mean {img.mean():.4f} (radiance {raw.mean():.3e}), the {int(opening.sum())} "
+          f"pixels through the ceiling's opening {lit:.3e} ({lit / raw.mean():.2f}x the "
+          f"image), finite {finite}; launches {launches}")
+    if not opening.any() or lit <= raw.mean():
+        raise RuntimeError("the sky above the opening is not lit in the skybox image")
+    wavefronts = _wavefronts(r, spp)
+    if launches["knn_query_by_k"] != {50: 2 * wavefronts} or launches["knn_query"] != 2 * wavefronts:
+        raise RuntimeError(f"K-knn launched {launches['knn_query_by_k']}, not {2 * wavefronts} "
+                           "gathers at k=50")
+    if any(n for name, n in launches.items() if name not in ("knn_query", "knn_query_by_k")):
+        raise RuntimeError(f"the skybox photon map launched another kernel: {launches}")
+
+    gathers = _capture_gathers(r)
+    volume, surface = gathers[("volume", 50)], gathers[("surface", 50)]
+    pmap = r.photon_map
+    vol = _gather_case(f"[skybox-photons] K-knn volume gather, sample 0 ({_misses(volume)} at "
+                       f"the origin: no collision before the hit)", pmap.volume_grid,
+                       [q for q, _ in volume], 50, _in_pass_ms(volume))
+    surf = _gather_case(f"[skybox-photons] K-knn surface gather, sample 0 ({_misses(surface)} "
+                        f"misses at the origin)", pmap.surface_grid, [q for q, _ in surface], 50,
+                        _in_pass_ms(surface))
+    return vol, surf, wavefronts
+
+
+# What `[sharded]` holds the sharded passes to against the single-process
+# ones: one rank traces the same lanes in the same (Morton) order and sums
+# them in the same order, so bit-equal on >= 99.99% of pixels and within
+# rtol 1e-5 on the rest. (In raster order K-sweep's partial sums split at
+# other ray blocks: 10,733 of the point-beam lampshade's 16,384 pixels
+# differed in the last bits.)
+SHARDED_EQUAL = 0.9999
+SHARDED_RTOL = 1e-5
+
+
+def _sharded_compare(label, got, ref) -> int:
+    """Pixels of a sharded sum that differ from the single-process one;
+    raises outside the limits above."""
+    ref = ref.astype(np.float32)
+    equal = (got == ref).all(axis=1)
+    close = np.isclose(got, ref, rtol=SHARDED_RTOL, atol=0.0).all()
+    print(f"[sharded] {label}: {got.shape[0]} pixels, {int((~equal).sum())} differ from the "
+          f"single-process pass (max abs {float(np.abs(got - ref).max()):.3e}); within rtol "
+          f"{SHARDED_RTOL}: {close}; radiance mean {got.mean():.5f}")
+    if equal.mean() < SHARDED_EQUAL or not close or not np.isfinite(got).all():
+        raise RuntimeError(f"the sharded {label} disagrees with the single-process pass")
+    return int((~equal).sum())
+
+
+def phase_sharded(r_dragon, r_lamp):
+    """`rpt_tpu_torch.parallel` over NCCL at world size 1 on the card, in
+    this process (a `FileStore` in a temporary directory), through
+    ``make_mesh(1)``: ``render_sharded`` on the dragon at bench.py's full
+    size (512^2, 8 spp, 2 bounces) against `_path_pass` for the same key;
+    on the point-beam lampshade ``shoot_photons_sharded`` (1M photons)
+    against `_shoot_launch` at ``fold_in(key, 0)``, bit for bit, and
+    ``photon_render_sharded`` (128^2, 50 spp, gather 20 / 3) over the map
+    built from those rows against `_photon_pass`. The launch counts are
+    zeroed just before the sharded calls and read just after, the
+    references run after. Returns the launches of the sharded calls."""
+    import tempfile
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from rpt_tpu_torch import parallel, sampling
+    from rpt_tpu_torch.integrators import photon as ph
+    from rpt_tpu_torch.renderer import _path_pass, _photon_pass
+
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", rank=0, world_size=1,
+                                timeout=timedelta(seconds=120))
+        try:
+            t0 = time.perf_counter()
+            mesh = parallel.make_mesh(1)
+            # NCCL sets up a communicator at a group's first collective
+            for group in (None, mesh.get_group("dp"), mesh.get_group("sp")):
+                dist.all_reduce(torch.zeros(1, device="cuda"), group=group)
+            torch.cuda.synchronize()
+            print(f"[sharded] {mesh} over {dist.get_backend()}, world size "
+                  f"{dist.get_world_size()}; group and mesh set up, first collectives run, in "
+                  f"{time.perf_counter() - t0:.3f} s")
+            r = r_dragon
+            scene, key = r.compiled, sampling.key(r.seed_, "cuda")
+            _zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = parallel.render_sharded(scene, r.camera, r.width_, r.height_, r.num_samples_,
+                                          r.max_bounces_, mesh, key)
+            wall = time.perf_counter() - t0
+            dragon = _read_counts()
+            t0 = time.perf_counter()
+            ref, _ = _path_pass(scene, r.camera, r.width_, r.height_, key, 0, r.num_samples_,
+                                r.max_bounces_)
+            print(f"[sharded] dragon {r.width_}x{r.height_} {r.num_samples_} spp "
+                  f"{r.max_bounces_} bounces: render_sharded {wall:.3f} s (_path_pass "
+                  f"{time.perf_counter() - t0:.3f} s); launches {dragon}")
+            _sharded_compare("dragon", got, ref)
+
+            r = r_lamp
+            scene, key = r.compiled, sampling.key(r.seed_, "cuda")
+            photons = 1_000_000
+            shoot_key = sampling.fold_in(key, 1)
+            _zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            surface, volume = parallel.shoot_photons_sharded(scene, shoot_key, photons, r.watts_,
+                                                             ph.POINT_BEAM, mesh)
+            t_shoot = time.perf_counter() - t0
+            shoot = _read_counts()
+            li, _ = ph._find_object_light(scene)
+            s_ref, v_ref, dropped = ph._shoot_launch(scene, scene.tables, li, r.watts_ / photons,
+                                                     48, photons, sampling.fold_in(shoot_key, 0))
+            same = (np.array_equal(surface, s_ref.cpu().numpy())
+                    and np.array_equal(volume, v_ref.cpu().numpy()))
+            print(f"[sharded] lampshade shoot_photons_sharded, {photons} photons: {t_shoot:.3f} s,"
+                  f" surface {surface.shape[0]}, volume {volume.shape[0]} (dropped {dropped}); "
+                  f"bit-equal to _shoot_launch at fold_in(key, 0): {same}; launches {shoot}")
+            if not same:
+                raise RuntimeError("shoot_photons_sharded differs from _shoot_launch")
+            pmap = ph.build_photon_map(scene, scene.tables, torch.from_numpy(surface).cuda(),
+                                       torch.from_numpy(volume).cuda(), ph.POINT_BEAM,
+                                       r.gather_size_, r.gather_size_volume_,
+                                       np.random.default_rng(r.seed_ + 17))
+            camera_key = sampling.fold_in(key, 2)
+            _zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = parallel.photon_render_sharded(scene, r.camera, r.width_, r.height_,
+                                                 r.num_samples_, pmap, ph.POINT_BEAM,
+                                                 r.gather_size_, r.gather_size_volume_, mesh,
+                                                 camera_key)
+            wall = time.perf_counter() - t0
+            lamp = _read_counts()
+            t0 = time.perf_counter()
+            ref = _photon_pass(scene, r.camera, r.width_, r.height_, pmap, camera_key,
+                               r.num_samples_, r.gather_size_, r.gather_size_volume_, True)
+            print(f"[sharded] lampshade photon_render_sharded {r.width_}x{r.height_} "
+                  f"{r.num_samples_} spp, gather {r.gather_size_} / {r.gather_size_volume_}: "
+                  f"{wall:.3f} s (_photon_pass {time.perf_counter() - t0:.3f} s); launches "
+                  f"{lamp}")
+            _sharded_compare("point-beam lampshade", got, ref)
+        finally:
+            dist.destroy_process_group()
+    launches = {name: dragon[name] + shoot[name] + lamp[name]
+                for name in ("bvh_closest_hit", "bvh_any_hit", "sphere_sweep", "knn_query")}
+    print(f"[sharded] launches of the sharded calls: {launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise RuntimeError(f"the sharded calls never launched {name}")
+    return launches
+
+
+# `[drivers]`: the cut at which every other new driver runs on the card.
+DRIVER_SCALE, DRIVER_SPP = 4, 2
+DRIVERS = ("glass", "metal", "wine_glass", "rustacean", "lego", "lighthouse", "fractal_teapots",
+           "basic", "spheres", "compound", "cornell_mirror", "fractal_spheres", "cylinder",
+           "monomial_glass", "volumetric", "skybox", "simple_video")
+
+
+def phase_drivers():
+    """The drivers that no other phase renders (`DRIVERS`; none is a photon
+    render), each built through its ``renderer()`` on the card, then cut: a
+    quarter of its width and height and `DRIVER_SPP` samples (the example's
+    own where fewer; `simple_video` its first frame), and rendered, counts
+    zeroed just before and read just after."""
+    import importlib
+
+    total = {}
+    for name in DRIVERS:
+        ex = importlib.import_module(f"torch_{name}")
+        r = ex.renderer("cuda")
+        r.width(max(8, r.width_ // DRIVER_SCALE)).height(max(8, r.height_ // DRIVER_SCALE))
+        r.num_samples(min(r.num_samples_, DRIVER_SPP))
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = r.render()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_counts()
+        finite = _check_image(f"[drivers] {name}", r, img)
+        print(f"[drivers] {name}: {r.width_}x{r.height_} {r.num_samples_} spp "
+              f"{r.max_bounces_} bounces{' (a medium)' if r.compiled.media else ''}, "
+              f"{r.compiled.n_tris} triangles: {wall:.3f} s, image mean {img.mean():.4f}, "
+              f"finite and non-black {finite}; launches {launches}")
+        for key in ("bvh_closest_hit", "bvh_any_hit"):
+            total[key] = total.get(key, 0) + launches[key]
+    return total
+
+
 def _beams_reference(beams, medium, o, d, hit_time):
     """The beam x beam estimate beam by beam in float64 (photon.rs:503-593
     with ``t > 0``) for a few lanes: (n, 3)."""
@@ -1538,6 +1796,10 @@ def main():
         k["launches"] = path_launches[k["name"]]
     kernels += traverse
     phase_golden_path()
+    sharded = phase_sharded(r_dragon, r)
+    for k in kernels:
+        k["sharded_launches"] = sharded[k["name"]]
+    del r_dragon
     r_pegasus, pegasus_launches = phase_pegasus(args.spp)
     pegasus = phase_pegasus_wavefronts(r_pegasus)
     del r_pegasus
@@ -1567,10 +1829,19 @@ def main():
     kernels.append(_knn_entry(100, "photonmap", lampshade_by_k[100],
                               {**lampshade[100], **_beside("k128", lampshade[128])}))
     kernels.append(_knn_entry(30, "photonmap", lampshade_by_k[30], lampshade[30]))
+    # the volume gather at k = 50 is an entry of its own; the surface gather
+    # of the same path rides as its side fields
+    sky_volume, sky_surface, sky_launches = phase_skybox_photons(args.spp)
+    kernels.append({**_knn_entry(50, "skybox-photons", sky_launches,
+                                 {**sky_volume, **_beside("surface", sky_surface)}),
+                    "name": "knn_query_k50_volume", "surface_launches": sky_launches})
     kernels[1]["beambeam_launches"] = phase_beambeam(args.spp)
     phase_directional_sweep(r)
     phase_volpath(args.vol_spp)
     phase_golden_media()
+    drivers = phase_drivers()
+    k1["drivers_launches"], k2["drivers_launches"] = (drivers["bvh_closest_hit"],
+                                                      drivers["bvh_any_hit"])
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -4,8 +4,9 @@
 ``get_mesh`` and ``get_hdri`` look for an asset under ``data/`` and fall
 back to a deterministic procedural stand-in where it is absent, as
 `_assets.py` does; ``save`` writes a PNG with the standard library alone
-(the GPU machine has no Pillow); ``preview_cut`` says at what size and
-on which device an example's ``main()`` runs.
+(the GPU machine has no Pillow); ``preview_cut`` says on which device an
+example's ``main()`` runs and how much of the work outside its
+`Renderer` it does.
 """
 
 import os
@@ -61,20 +62,16 @@ def get_hdri(name: str = "ballroom_2k") -> rpt.Hdri:
     return rpt.Hdri(sky + sun[..., None] * np.array([1.0, 0.95, 0.9]))
 
 
-def preview_cut(size: int, sample: int, photons: int = 0):
-    """(resolution, samples, photons, device) of an example's run: its own
-    parameters on the card (raising where there is none). As with the JAX
-    examples, RPT_TPU_PREVIEW=<s> makes a preview, the tiny run
-    `tests/test_examples.py` makes of every example: on the CPU, the
-    resolution divided by s, samples capped at RPT_TPU_PREVIEW_SAMPLES (4)
-    and photons at RPT_TPU_PREVIEW_PHOTONS (5000)."""
-    preview = os.environ.get("RPT_TPU_PREVIEW")
-    if not preview:
-        return size, sample, photons, "cuda"
-    size = max(8, size // max(1, int(preview)))
-    sample = max(1, min(sample, int(os.environ.get("RPT_TPU_PREVIEW_SAMPLES", "4"))))
-    photons = min(photons, int(os.environ.get("RPT_TPU_PREVIEW_PHOTONS", "5000")))
-    return size, sample, photons, "cpu"
+def preview_cut(full=None, preview=None):
+    """``(work, device)`` of an example's ``main()``: ``full`` on the card
+    (raising where there is none). Under RPT_TPU_PREVIEW, the tiny run
+    `tests/test_examples.py` makes of every example, ``preview`` on the
+    CPU. The `Renderer` cuts its own resolution, samples and photons
+    (`Renderer._apply_preview`); ``full``/``preview`` is the work outside
+    it that a driver cuts (the dragon's mesh)."""
+    if os.environ.get("RPT_TPU_PREVIEW"):
+        return preview, "cpu"
+    return full, "cuda"
 
 
 def _png_chunk(tag: bytes, data: bytes) -> bytes:

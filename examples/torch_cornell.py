@@ -60,17 +60,10 @@ def renderer(device="cuda", size=48, spp=24, seed=42) -> rpt.Renderer:
 
 
 def main():
-    from _torch_assets import save
+    """Render on the card; a preview (`preview_cut`) on the CPU."""
+    from _torch_assets import preview_cut, save
 
-    size, spp = 512, 500
-    # on the card; as the JAX examples, RPT_TPU_PREVIEW=<s> makes a preview
-    # on the CPU: the resolution divided by s, the samples capped at
-    # RPT_TPU_PREVIEW_SAMPLES (4)
-    preview = os.environ.get("RPT_TPU_PREVIEW")
-    device = "cpu" if preview else "cuda"
-    if preview:
-        size = max(8, size // max(1, int(preview)))
-        spp = max(1, min(spp, int(os.environ.get("RPT_TPU_PREVIEW_SAMPLES", "4"))))
+    _, device = preview_cut()
     os.makedirs("results", exist_ok=True)
     state = {"time": time.time()}
 
@@ -80,7 +73,7 @@ def main():
         save(buffer.image(), f"results/output_{iteration - 1:03d}.png")
         state["time"] = time.time()
 
-    renderer(device, size, spp, 0).filter(rpt.Filter.Box(1)).iterative_render(10, callback)
+    renderer(device, 512, 500, 0).filter(rpt.Filter.Box(1)).iterative_render(10, callback)
 
 
 if __name__ == "__main__":

@@ -11,7 +11,6 @@ tests.
 """
 
 import math
-import os
 
 import rpt_tpu_torch as rpt
 from rpt_tpu_torch.meshes import displaced_blob
@@ -51,19 +50,12 @@ def renderer(device="cuda", size=WIDTH, spp=SPP, seed=0, scene=None) -> rpt.Rend
 
 
 def main():
-    from _torch_assets import save
+    """Render on the card; a preview (`preview_cut`) on the CPU with a
+    4704-triangle mesh, the `Renderer` cutting its size and samples."""
+    from _torch_assets import preview_cut, save
 
-    size, spp, mesh = WIDTH, SPP, MESH
-    # on the card; as the JAX examples, RPT_TPU_PREVIEW=<s> makes a preview
-    # on the CPU: the resolution divided by s, the samples capped at
-    # RPT_TPU_PREVIEW_SAMPLES (4) and a 4704-triangle mesh
-    preview = os.environ.get("RPT_TPU_PREVIEW")
-    device = "cpu" if preview else "cuda"
-    if preview:
-        size = max(8, size // max(1, int(preview)))
-        spp = max(1, min(spp, int(os.environ.get("RPT_TPU_PREVIEW_SAMPLES", "4"))))
-        mesh = (48, 49)
-    r = renderer(device, size, spp, scene=build_scene(*mesh))
+    mesh, device = preview_cut(MESH, (48, 49))
+    r = renderer(device, scene=build_scene(*mesh))
     img = r.render()
     c = r.ray_counter
     print(f"{c.segments} ray segments in {c.seconds:.3f} s: "

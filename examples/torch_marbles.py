@@ -85,20 +85,21 @@ def renderer(device="cuda", positions=None, hdri=None, width=WIDTH, height=HEIGH
 
 
 def main():
-    """Render the frames at the example's parameters (`preview_cut`), then
-    mux them."""
-    res, spp, _, device = preview_cut(WIDTH, SPP)
-    height = res * HEIGHT // WIDTH
+    """Render the frames at the example's parameters (a preview on the
+    CPU: `preview_cut`), then mux them."""
+    _, device = preview_cut()
     state, system = initial_state(device), MarblesSystem(radius=R)
     hdri = get_hdri("ballroom_8k")
+    size = f"{WIDTH}x{HEIGHT}"
     for frame in range(int(os.environ.get("RPT_TPU_FRAMES", str(FRAMES)))):
-        r = renderer(device, marble_positions(state), hdri, res, height, spp)
+        r = renderer(device, marble_positions(state), hdri)
         save(r.render(), f"video/image_{frame}.png")
+        size = f"{r.width_}x{r.height_}"
         state = system.rk4_integrate(state, FRAME_TIME, STEP)
         print(f"Frame {frame} finished")
     try:
         subprocess.run(["ffmpeg", "-y", "-i", "video/image_%d.png", "-vcodec", "libx264",
-                        "-s", f"{res}x{height}", "-pix_fmt", "yuv420p", "video.mp4"], check=False)
+                        "-s", size, "-pix_fmt", "yuv420p", "video.mp4"], check=False)
     except FileNotFoundError:
         print("ffmpeg not installed; frames left in video/")
 

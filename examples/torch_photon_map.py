@@ -73,9 +73,10 @@ def renderer(device="cuda", size=size, sample=sample, seed=0) -> rpt.Renderer:
 
 
 def main():
-    """Render at the example's parameters (`preview_cut`) and save a PNG."""
-    res, spp, n_photons, device = preview_cut(size, sample, photons)
-    img = renderer(device, size=res, sample=spp).photon_map_render(n_photons)
+    """Render at the example's parameters (a preview on the CPU:
+    `preview_cut`) and save a PNG."""
+    _, device = preview_cut()
+    img = renderer(device).photon_map_render(photons)
     save(img, "output7.png")
 
 

@@ -8,7 +8,6 @@ settings of the golden image `tests/golden/sphere_64x36_16spp.npy`
 """
 
 import math
-import os
 
 import rpt_tpu_torch as rpt
 
@@ -34,18 +33,11 @@ def renderer(device="cuda", width=64, height=36, spp=16, seed=42) -> rpt.Rendere
 
 
 def main():
-    from _torch_assets import save
+    """Render on the card; a preview (`preview_cut`) on the CPU."""
+    from _torch_assets import preview_cut, save
 
-    width, height, spp = 960, 540, 100
-    # on the card; as the JAX examples, RPT_TPU_PREVIEW=<s> makes a preview
-    # on the CPU: the resolution divided by s, the samples capped at
-    # RPT_TPU_PREVIEW_SAMPLES (4)
-    preview = os.environ.get("RPT_TPU_PREVIEW")
-    device = "cpu" if preview else "cuda"
-    if preview:
-        width, height = (max(8, v // max(1, int(preview))) for v in (width, height))
-        spp = max(1, min(spp, int(os.environ.get("RPT_TPU_PREVIEW_SAMPLES", "4"))))
-    img = renderer(device, width, height, spp, 0).render()
+    _, device = preview_cut()
+    img = renderer(device, 960, 540, 100, 0).render()
     save(img, "output.png")
 
 

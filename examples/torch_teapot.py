@@ -33,9 +33,10 @@ def renderer(device="cuda", size=SIZE, sample=SPP, seed=0) -> rpt.Renderer:
 
 
 def main():
-    """Render at the example's parameters (`preview_cut`) and save a PNG."""
-    res, spp, _, device = preview_cut(SIZE, SPP)
-    save(renderer(device, size=res, sample=spp).render(), "output.png")
+    """Render at the example's parameters (a preview on the CPU:
+    `preview_cut`) and save a PNG."""
+    _, device = preview_cut()
+    save(renderer(device).render(), "output.png")
 
 
 if __name__ == "__main__":

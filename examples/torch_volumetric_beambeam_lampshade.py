@@ -38,10 +38,11 @@ def renderer(device="cuda", size=size, bounce=bounce, sample=sample, photons=pho
 
 
 def main():
-    """Render at the example's parameters (`preview_cut`) and save a PNG."""
-    res, spp, n_photons, device = preview_cut(size, sample, photons)
-    img = renderer(device, size=res, sample=spp).photon_beam_query_beam_render(n_photons)
-    save(img, f"lampshade/beambeam/torch_{res}_{bounce}_{spp}_{n_photons}_{watts}_"
+    """Render at the example's parameters (a preview on the CPU:
+    `preview_cut`) and save a PNG."""
+    _, device = preview_cut()
+    img = renderer(device).photon_beam_query_beam_render(photons)
+    save(img, f"lampshade/beambeam/torch_{size}_{bounce}_{sample}_{photons}_{watts}_"
               f"{gather_size}_{gather_size_volume}_{absorb}_{scat}.png")
 
 

@@ -35,9 +35,9 @@ def renderer(device="cuda", size=size, bounce=bounce, sample=sample, seed=0) -> 
 
 
 def main():
-    """Render progressively at the example's parameters (`preview_cut`),
-    saving a PNG every ``every_x`` samples."""
-    res, spp, _, device = preview_cut(size, sample)
+    """Render progressively at the example's parameters (a preview on the
+    CPU: `preview_cut`), saving a PNG every ``every_x`` samples."""
+    _, device = preview_cut()
     state = {"t": time.time()}
 
     def cb(iteration, buffer):
@@ -46,7 +46,7 @@ def main():
         save(buffer.image(), f"lampshade/pathtrace/torch_output_{iteration - 1:03d}.png")
         state["t"] = time.time()
 
-    renderer(device, size=res, sample=spp).iterative_render(every_x, cb)
+    renderer(device).iterative_render(every_x, cb)
 
 
 if __name__ == "__main__":

@@ -12,8 +12,11 @@ any size through the BVH kernels K1/K2) and the three photon kinds
 ``photon_beam_query_beam_render``; K-knn and K-sweep). Scenes may be lit
 by an ``Hdri`` sky, meshes loaded with the OBJ/MTL/STL loaders of
 ``io`` (``load_hdr`` decodes Radiance RGBE itself), and particles moved by
-the RK4 systems of ``ode``. The flat exports are `rpt_tpu/__init__.py`'s;
-only `parallel.py`'s sharded renders are not ported.
+the RK4 systems of ``ode``. ``Renderer.profile`` records a sample under
+``torch.profiler``, and ``RPT_TPU_PREVIEW`` cuts a render for smoke runs.
+The flat exports are `rpt_tpu/__init__.py`'s; the sharded renders over
+``torch.distributed`` are ``rpt_tpu_torch.parallel``'s, as in the JAX
+package not exported flat.
 """
 
 from .buffer import Buffer, Filter  # noqa: F401

@@ -14,10 +14,17 @@ All four integrators run: path tracing (``render``, ``sample``,
 `trace_volumetric` where the scene has a medium, and the three photon
 kinds (``photon_map_render``, ``photon_point_query_beam_render``,
 ``photon_beam_query_beam_render``) through `integrators.photon`.
+
+``profile(trace_dir)`` records the next ``sample`` call under
+``torch.profiler``; ``RPT_TPU_PREVIEW`` shrinks a render for smoke runs
+(`_apply_preview`), as in the JAX package. The multi-device passes are
+`rpt_tpu_torch.parallel`'s.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 from dataclasses import dataclass, field
 
@@ -64,6 +71,7 @@ class Renderer:
         self.phase_seconds: dict = {}
         self.photon_counts: dict = {}
         self.photon_map = None
+        self._profile_dir = None
 
     # builder setters ----------------------------------------------------
     def width(self, v):
@@ -114,6 +122,14 @@ class Renderer:
         self.media_max_depth_ = int(v)
         return self
 
+    def profile(self, trace_dir: str):
+        """Record the next ``sample`` call (one-shot) under
+        ``torch.profiler``, the CPU and, on the card, its kernels, and write
+        a Chrome trace into ``trace_dir`` (`rpt_tpu/renderer.py:114-120`;
+        the reference has no profiler). The image is unchanged."""
+        self._profile_dir = trace_dir
+        return self
+
     # ------------------------------------------------------------------
     @property
     def compiled(self) -> CompiledScene:
@@ -121,9 +137,24 @@ class Renderer:
             self._compiled = self.scene.compile(self.device)
         return self._compiled
 
+    def _apply_preview(self):
+        """RPT_TPU_PREVIEW=<s> shrinks a render for smoke runs without
+        touching driver code (`rpt_tpu/renderer.py:129-140`): the width
+        and height divided by s (at least 8), the samples capped at
+        RPT_TPU_PREVIEW_SAMPLES (4); `photon_render` caps the photons at
+        RPT_TPU_PREVIEW_PHOTONS (5000). The device stays the caller's."""
+        scale = os.environ.get("RPT_TPU_PREVIEW")
+        if scale:
+            s = max(1, int(scale))
+            self.width_ = max(8, self.width_ // s)
+            self.height_ = max(8, self.height_ // s)
+            cap = int(os.environ.get("RPT_TPU_PREVIEW_SAMPLES", "4"))
+            self.num_samples_ = max(1, min(self.num_samples_, cap))
+
     def render(self) -> np.ndarray:
         """Path trace and return an (H, W, 3) sRGB u8 image
         (renderer.rs:137-141)."""
+        self._apply_preview()
         buffer = Buffer(self.width_, self.height_, self.filter_)
         self.sample(self.num_samples_, buffer)
         self._last_buffer = buffer
@@ -132,6 +163,7 @@ class Renderer:
     def iterative_render(self, callback_interval: int, callback) -> Buffer:
         """Progressive render; ``callback(iteration, buffer)`` every
         ``callback_interval`` samples (renderer.rs:144-156)."""
+        self._apply_preview()
         callback_interval = min(callback_interval, self.num_samples_)
         buffer = Buffer(self.width_, self.height_, self.filter_)
         iteration = 0
@@ -147,11 +179,18 @@ class Renderer:
         mean, exposure-scaled) to the buffer (renderer.rs:158-184). Sample
         indices are absolute across calls, as in the JAX package."""
         scene = self.compiled
+        profile_dir, self._profile_dir = self._profile_dir, None
         t0 = time.perf_counter()
-        total, segments = _path_pass(scene, self.camera, self.width_, self.height_,
-                                     sampling.key(self.seed_, self.device), self._sample_index,
-                                     int(iterations), self.max_bounces_, self.media_max_depth_)
+        with self._recording(profile_dir) as prof:
+            total, segments = _path_pass(scene, self.camera, self.width_, self.height_,
+                                         sampling.key(self.seed_, self.device),
+                                         self._sample_index, int(iterations), self.max_bounces_,
+                                         self.media_max_depth_)
         elapsed = time.perf_counter() - t0
+        if profile_dir:
+            os.makedirs(profile_dir, exist_ok=True)
+            prof.export_chrome_trace(
+                os.path.join(profile_dir, f"sample_{self._sample_index}.trace.json"))
         self._sample_index += iterations
         self.ray_counter.record(scene, self.width_, self.height_, iterations,
                                 self.max_bounces_, self.media_max_depth_, elapsed, segments)
@@ -173,6 +212,17 @@ class Renderer:
         """Beam-photon / beam-query (photon.rs:646-648)."""
         return self.photon_render(photon_count, "beam_beam")
 
+    def _recording(self, profile_dir):
+        """A ``torch.profiler.profile`` of the CPU and, on the card, of
+        CUDA where ``profile_dir`` is set, else a context that records
+        nothing."""
+        if not profile_dir:
+            return contextlib.nullcontext()
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        return torch.profiler.profile(activities=activities)
+
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -187,6 +237,10 @@ class Renderer:
         ``photon_counts`` and the built ``photon_map``."""
         from .integrators import photon as ph
 
+        self._apply_preview()
+        if os.environ.get("RPT_TPU_PREVIEW"):  # `rpt_tpu/renderer.py:219-221`
+            photon_count = min(photon_count,
+                               int(os.environ.get("RPT_TPU_PREVIEW_PHOTONS", "5000")))
         scene = self.compiled
         key = sampling.key(self.seed_, self.device)
 
@@ -290,12 +344,19 @@ def _pixel_grid(width: int, height: int):
 
 def camera_wavefront(scene, camera: Camera, width: int, height: int, key, s: int):
     """Sample ``s``'s camera wavefront in Morton lane order and its
-    per-lane keys ``fold(fold_in(key, pixel_id), s)`` (the absolute sample
-    index): jitter from folds 1 and 2, the lens from fold 3, the trace from
-    fold 4 (`rpt_tpu/renderer.py:370-379`). Returns ``(ray, keys)``."""
-    dev = scene.device
-    dim = float(max(width, height))
+    per-lane keys (`camera_rays`). Returns ``(ray, keys)``."""
     xn_np, yn_np, pixel_ids, _ = _pixel_grid(width, height)
+    return camera_rays(scene, camera, float(max(width, height)), xn_np, yn_np, pixel_ids, key, s)
+
+
+def camera_rays(scene, camera: Camera, dim: float, xn_np, yn_np, pixel_ids, key, s: int):
+    """The camera rays of sample ``s`` through the pixels ``pixel_ids`` at
+    NDC ``(xn_np, yn_np)`` (float64 arrays, rounded to float32 here), and
+    their per-lane keys ``fold(fold_in(key, pixel_id), s)`` (the absolute
+    sample index): jitter from folds 1 and 2, the lens from fold 3, the
+    trace from fold 4 (`rpt_tpu/renderer.py:370-379`). ``dim`` is
+    ``max(width, height)``. Returns ``(ray, keys)``."""
+    dev = scene.device
     xn = torch.tensor(xn_np, dtype=DTYPE, device=dev)
     yn = torch.tensor(yn_np, dtype=DTYPE, device=dev)
     keys = sampling.fold(sampling.fold_in(key, torch.tensor(pixel_ids, device=dev)), s)

@@ -2,6 +2,7 @@
 jax, rpt_tpu, imageio or Pillow, and a CUDA device is never silently
 replaced by the CPU."""
 
+import importlib
 import os
 import pkgutil
 import subprocess
@@ -31,7 +32,14 @@ import torch_volumetric_photonphoton_lampshade as lampshade_map  # noqa: E402
 EXAMPLES = ("torch_volumetric_beamphoton_lampshade", "torch_volumetric_photonphoton_lampshade",
             "torch_volumetric_beambeam_lampshade", "torch_volumetric_pathtrace_lampshade",
             "torch_dragon", "torch_sphere", "torch_cornell", "torch_photon_map",
-            "torch_pegasus", "torch_teapot", "torch_marbles")
+            "torch_pegasus", "torch_teapot", "torch_marbles",
+            "torch_skybox_photons", "torch_glass", "torch_metal", "torch_wine_glass",
+            "torch_rustacean", "torch_lego", "torch_lighthouse", "torch_fractal_teapots",
+            "torch_basic", "torch_spheres", "torch_compound", "torch_cornell_mirror",
+            "torch_fractal_spheres", "torch_cylinder", "torch_monomial_glass",
+            "torch_volumetric", "torch_skybox", "torch_simple_video")
+# the drivers whose renderer() is called with no argument below
+DRIVERS = EXAMPLES[11:]
 
 
 def _modules():
@@ -47,7 +55,8 @@ def test_modules_import_without_jax():
             "rpt_tpu_torch.accel.knn", "rpt_tpu_torch.renderer",
             "rpt_tpu_torch.integrators.path", "rpt_tpu_torch.ops.bvh_traverse",
             "rpt_tpu_torch.meshes", "rpt_tpu_torch.medium", "rpt_tpu_torch.io",
-            "rpt_tpu_torch.ode", "rpt_tpu_torch.environment"} <= set(names)
+            "rpt_tpu_torch.ode", "rpt_tpu_torch.environment",
+            "rpt_tpu_torch.parallel"} <= set(names)
     found = {f[:-3] for f in os.listdir(os.path.join(ROOT, "examples"))
              if f.startswith("torch_") and f.endswith(".py")}
     assert found == set(EXAMPLES)
@@ -62,7 +71,8 @@ def test_modules_import_without_jax():
         "volume_estimate_point\n"
         "from rpt_tpu_torch import Medium\n"
         "assert callable(Medium.henyey_greenstein)\n"
-        "import _torch_assets\n"
+        "import _torch_assets, _torch_skybox\n"
+        "from rpt_tpu_torch.parallel import make_mesh, render_sharded\n"
         "_torch_assets.get_hdri('birchwood_8k')\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'rpt_tpu', 'imageio', 'PIL')]\n"
@@ -102,6 +112,9 @@ def test_cuda_device_raises_without_a_card():
                                                                     np.zeros((1, 3)))):
         with pytest.raises(RuntimeError, match="cuda"):
             make()
+    for name in DRIVERS:
+        with pytest.raises(RuntimeError, match="cuda"):
+            importlib.import_module(name).renderer()
     # the CPU is an explicit choice, and the renderer records it
     assert tr.Renderer(scene, tr.Camera(), device="cpu").device.type == "cpu"
 
@@ -109,16 +122,17 @@ def test_cuda_device_raises_without_a_card():
 def test_examples_never_probe_for_a_card(monkeypatch):
     """No torch example asks whether CUDA is available: a run is on the
     card (and raises without one) unless it is a preview, which is on the
-    CPU by choice (`preview_cut`)."""
+    CPU by choice (`preview_cut`), where the `Renderer` makes its own cut
+    and the driver cuts only the work outside it (the dragon's mesh)."""
     for name in EXAMPLES:
         with open(os.path.join(ROOT, "examples", f"{name}.py")) as f:
             assert "is_available" not in f.read(), name
     monkeypatch.delenv("RPT_TPU_PREVIEW", raising=False)
-    assert lampshade.preview_cut(128, 50, 10**6) == (128, 50, 10**6, "cuda")
+    assert lampshade.preview_cut() == (None, "cuda")
+    assert lampshade.preview_cut((660, 661), (48, 49)) == ((660, 661), "cuda")
     monkeypatch.setenv("RPT_TPU_PREVIEW", "32")
-    monkeypatch.setenv("RPT_TPU_PREVIEW_SAMPLES", "2")
-    monkeypatch.setenv("RPT_TPU_PREVIEW_PHOTONS", "2000")
-    assert lampshade.preview_cut(512, 10, 10**7) == (16, 2, 2000, "cpu")
+    assert lampshade.preview_cut() == (None, "cpu")
+    assert lampshade.preview_cut((660, 661), (48, 49)) == ((48, 49), "cpu")
 
 
 def test_sah_builder_source_is_the_ports_own_copy():

@@ -2,14 +2,16 @@
 
     python3 tools/profile_torch_photon.py [--kind point_beam] [--spp 5]
                                           [--photons N] [--size N]
-                                          [--device cuda] [--cornell]
+                                          [--device cuda] [--cornell | --skybox]
 
 Runs the three phases of a lampshade photon example (``--kind``:
 `examples/torch_volumetric_beamphoton_lampshade.py` for ``point_beam``,
 `..._photonphoton_...` for ``photon_map``, `..._beambeam_...` for
 ``beam_beam``), or with ``--cornell`` of `examples/torch_photon_map.py`
 (the photon-map kind in a Cornell box with no medium, gather 50 / 50),
-at the example's own size and photon count unless ``--size`` and
+or with ``--skybox`` of `examples/torch_skybox_photons.py` (the
+photon-map kind in the open foggy box under the sky, gather 50 / 50 over
+both clouds), at the example's own size and photon count unless ``--size`` and
 ``--photons`` say otherwise (shoot, map build, camera pass) one after the
 other under
 `torch.profiler`, and prints for each phase its wall time, the time the
@@ -34,6 +36,7 @@ sys.path[:0] = [ROOT, os.path.join(ROOT, "examples")]
 
 import numpy as np  # noqa: E402
 import torch_photon_map  # noqa: E402
+import torch_skybox_photons  # noqa: E402
 import torch_volumetric_beambeam_lampshade  # noqa: E402
 import torch_volumetric_beamphoton_lampshade  # noqa: E402
 import torch_volumetric_photonphoton_lampshade  # noqa: E402
@@ -122,16 +125,22 @@ def main():
     parser.add_argument("--kind", default=ph.POINT_BEAM, choices=sorted(EXAMPLES))
     parser.add_argument("--cornell", action="store_true",
                         help="examples/torch_photon_map.py (the photon-map kind)")
+    parser.add_argument("--skybox", action="store_true",
+                        help="examples/torch_skybox_photons.py (the photon-map kind in fog)")
     parser.add_argument("--size", type=int, default=None)
     parser.add_argument("--photons", type=int, default=None)
     parser.add_argument("--spp", type=int, default=5)
     args = parser.parse_args()
 
-    ex = torch_photon_map if args.cornell else EXAMPLES[args.kind]
-    if args.cornell:
-        args.kind = ph.PHOTON_MAP
-    args.size = args.size or ex.size
-    args.photons = args.photons or ex.photons
+    if args.skybox:
+        ex, args.kind, scene_name = torch_skybox_photons, ph.PHOTON_MAP, "skybox"
+        args.size, args.photons = args.size or ex.SIZE, args.photons or ex.PHOTONS
+    else:
+        ex = torch_photon_map if args.cornell else EXAMPLES[args.kind]
+        scene_name = "cornell" if args.cornell else "lampshade"
+        if args.cornell:
+            args.kind = ph.PHOTON_MAP
+        args.size, args.photons = args.size or ex.size, args.photons or ex.photons
     # the photon-map examples' watts do not scale with the photon count
     scaled = {} if args.kind == ph.PHOTON_MAP else {"photons": args.photons}
     r = ex.renderer(args.device, size=args.size, sample=args.spp, **scaled)
@@ -141,7 +150,7 @@ def main():
 
         _build.library()
     key = sampling.key(r.seed_, dev)
-    print(f"profile: {'cornell' if args.cornell else 'lampshade'} {args.kind} {args.size}^2, "
+    print(f"profile: {scene_name} {args.kind} {args.size}^2, "
           f"{args.photons} photons, gather "
           f"{r.gather_size_} / {r.gather_size_volume_}, {args.spp} spp on "
           f"{torch.cuda.get_device_name(dev) if dev.type == 'cuda' else 'cpu'}")
