@@ -5,6 +5,19 @@
 Builds the hand-written CUDA kernels from `rpt_tpu_torch/csrc` (one nvcc
 per source, in parallel) and drives every ported path end to end:
 
+- `[K-rng]` first: the threefry2x32 RNG (`csrc/threefry.cu`) against its
+  plain version (int64 torch ops) in every call form the paths make
+  (fold of one key with a tensor of wide data, of a batch with an int and
+  with a batch, of (A, B) keys; split; uniform at three ranges, uniform2,
+  uniform3; the raw words) at 262,144 lanes and at the photon shoot's
+  chunk of 2^19, bit for bit on every element, each timed on the device
+  and on the host beside its plain version and its bound; then the 32^2
+  point-beam and the Cornell golden renders, once as shipped and once with
+  `rpt_tpu_torch.sampling`'s RNG functions patched here to the plain
+  versions, bit-equal. Every path below draws its numbers through K-rng:
+  its launches are read with the path's other counts, and each path must
+  have folded keys and drawn floats through it (a photon shoot also split
+  keys);
 - the point-photon x beam-query path at the lampshade example's own
   parameters; it launches K-sweep (once per camera wavefront) and K-knn
   (one self-query launch for the photon radii, one gather per wavefront),
@@ -67,6 +80,9 @@ per source, in parallel) and drives every ported path end to end:
 - 17 drivers that no other phase renders (`[drivers]`), each built by its
   ``renderer("cuda")`` and cut to a quarter of its size and 2 spp.
 
+The K-rng entries of the kernel report (fold, split, uniform) carry the
+launches of every path by path (``launches_by_path``) and their sum;
+``random_bits``, which no path calls, rides as side fields of uniform's.
 The counting variants of K-knn, K1 and K2 print what a query or a ray
 costs (levels, cells and candidates; steps, leaf slots and the warps'
 live-lane share). A K-knn gather is timed on every wavefront of a sample,
@@ -87,7 +103,7 @@ launch counts of each path are set to 0 just before it and read just
 after. The last three lines are the kernel report (JSON: each kernel's
 launches on its path, its time, its plain version's, and its bound, the
 larger of its bytes at the HBM rate and its operations at the float32
-rate), the card's name and power limit, and the device report (JSON). It
+rate, K-rng's int32 operations at half that rate), the card's name and power limit, and the device report (JSON). It
 imports neither jax nor rpt_tpu, and exits non-zero without a result
 where CUDA is unavailable or the repository is not beside it.
 """
@@ -230,19 +246,18 @@ def phase_render(spp_cap):
 
     spp = _cut(ex.sample, spp_cap)
     r = ex.renderer("cuda", sample=spp, seed=0)
-    sphere_sweep.launches = 0
-    knn_query.launches = 0
-    knn_radius.launches = 0
+    _zero_counts()
     img = r.photon_point_query_beam_render(ex.photons)
     launches = {"sphere_sweep": sphere_sweep.launches, "knn_query": knn_query.launches,
                 "knn_radius": knn_radius.launches}
+    rng = _read_rng("render", shoots=True)
     s, c = r.phase_seconds, r.photon_counts
     finite = bool(np.isfinite(r._last_buffer.raw()).all())
     note = "" if spp == ex.sample else f" (spp lowered from {ex.sample} to {spp})"
     print(f"[render] {r.width_}x{r.height_} {spp} spp{note}, {ex.photons} photons: shoot "
           f"{s['shoot']:.3f} s, build {s['build']:.3f} s, trace {s['trace']:.3f} s; "
           f"surface {c['surface']}, volume {c['volume']}, dropped {c['dropped']}; "
-          f"image mean {img.mean():.4f}, finite {finite}; launches {launches}")
+          f"image mean {img.mean():.4f}, finite {finite}; launches {launches}, K-rng {rng}")
     if not finite or img.shape != (r.height_, r.width_, 3) or img.mean() <= 0:
         raise RuntimeError("render output is not a finite, non-black image of the right shape")
     for name, n in launches.items():
@@ -278,11 +293,268 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def _bound(n_bytes: float, n_ops: float):
+def _bound(n_bytes: float, n_ops: float, ops_per_s: float = FP32_OPS_PER_S):
     """(bound_ms, bound_by): the larger of moving ``n_bytes`` at the HBM
-    rate and doing ``n_ops`` at the float32 rate."""
-    t_bytes, t_ops = n_bytes / MEM_BYTES_PER_S * 1e3, n_ops / FP32_OPS_PER_S * 1e3
+    rate and doing ``n_ops`` at ``ops_per_s`` (the float32 rate)."""
+    t_bytes, t_ops = n_bytes / MEM_BYTES_PER_S * 1e3, n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# K-rng: the sizes of its check (a dragon wavefront's 512^2 lanes, and the
+# photon shoot's chunk of 2^19), its operations counted from
+# `csrc/threefry.cu` (a hash: 20 rounds of add, funnel shift and xor, five
+# key injections of three adds, two initial adds, the schedule's two xors;
+# uniform maps a word with xor, shift, or, sub, mul and add), and the
+# int32 rate, taken as half the float32 rate.
+RNG_SIZES = (1 << 18, 1 << 19)
+HASH_OPS = 20 * 3 + 5 * 3 + 2 + 2
+MAP_OPS = 6
+INT32_OPS_PER_S = FP32_OPS_PER_S / 2
+RNG_WRAPPERS = ("threefry_fold", "threefry_split", "threefry_uniform", "threefry_bits")
+# K-rng launches of every path the smoke drives, by path (`_read_rng`)
+RNG_LAUNCHES: dict = {}
+# Cycles of `torch.cuda._sleep` (about 10 ms at the H100's clocks) that
+# hold the card while the host enqueues the call timed behind them.
+HOLD_CYCLES = 20_000_000
+
+
+def _device_ms(fn, reps: int = 5):
+    """Mean device time of one call of ``fn``, its inputs warm in L2, and
+    the host's longest enqueue of it: before each call `HOLD_CYCLES` of
+    sleep keep the card busy while the host enqueues the call, so the CUDA
+    events around it bracket the device's work alone, not the host's
+    launches. One warm-up call first."""
+    fn()
+    torch.cuda.synchronize()
+    pairs, enqueue = [], 0.0
+    for _ in range(reps):
+        torch.cuda._sleep(HOLD_CYCLES)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        enqueue = max(enqueue, (time.perf_counter() - t0) * 1e3)
+        pairs.append((start, end))
+        torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps, enqueue
+
+
+def _rng_forms(n: int, dev):
+    """Every call form the paths make of the RNG at ``n`` lanes, made from
+    a seed: ``(label, wrapper name, kernel call, plain call, bytes,
+    operations)``; bytes and operations are K-rng's for that call."""
+    from rpt_tpu_torch import sampling
+    from rpt_tpu_torch.ops import threefry as tf
+
+    rng = np.random.default_rng(n)
+    key = sampling.key(2**33 + 17, dev)
+    keys = tf.keys_for_plain(key, n)
+    data = torch.tensor(np.concatenate([rng.integers(-2**40, 2**40, n - 4),
+                                        [-1, 2**31, 2**32 - 1, 2**32 + 3]]), device=dev)
+    grid = keys.reshape(512, n // 512, 2)
+    hashed = n * HASH_OPS
+    forms = [
+        ("fold batch x int", "threefry_fold", lambda: tf.threefry_fold(keys, 0xB5DF),
+         lambda: tf.fold_in_plain(keys, 0xB5DF), n * 32, hashed),
+        ("fold key x data", "threefry_fold", lambda: tf.threefry_fold(key, data),
+         lambda: tf.fold_in_plain(key, data), 16 + n * 24, hashed),
+        ("fold batch x batch", "threefry_fold", lambda: tf.threefry_fold(keys, data),
+         lambda: tf.fold_in_plain(keys, data), n * 40, hashed),
+        ("fold (A, B) keys x int", "threefry_fold", lambda: tf.threefry_fold(grid, 3),
+         lambda: tf.fold_in_plain(grid, 3), n * 32, hashed),
+        ("split", "threefry_split", lambda: tf.threefry_split(key, n),
+         lambda: tf.keys_for_plain(key, n), 16 + n * 16, hashed),
+    ]
+    for lo, hi in ((-1.0 / 512.0, 1.0 / 512.0), (-0.25, 0.25), (0.0, 1.0)):
+        forms.append((f"uniform [{lo:g}, {hi:g})", "threefry_uniform",
+                      lambda lo=lo, hi=hi: tf.threefry_uniform(keys, 1, lo, hi),
+                      lambda lo=lo, hi=hi: tf.uniforms_plain(keys, 1, lo, hi),
+                      n * 20, n * (HASH_OPS + MAP_OPS)))
+    for count in (2, 3):
+        forms.append((f"uniform{count}", "threefry_uniform",
+                      lambda c=count: tf.threefry_uniform(keys, c),
+                      lambda c=count: tf.uniforms_plain(keys, c),
+                      n * (16 + 4 * count), n * count * (HASH_OPS + MAP_OPS)))
+    forms.append(("uniform3 of (A, B) keys", "threefry_uniform",
+                  lambda: tf.threefry_uniform(grid, 3), lambda: tf.uniforms_plain(grid, 3),
+                  n * 28, n * 3 * (HASH_OPS + MAP_OPS)))
+    forms.append(("bits x3", "threefry_bits", lambda: tf.threefry_bits(keys, 3),
+                  lambda: tf.random_bits_plain(keys, 3), n * 40, n * 3 * (HASH_OPS + 1)))
+    return forms
+
+
+def _compare(got, ref):
+    """(bit-equal, max abs difference) of a K-rng call's outputs against
+    the plain version's: keys and words as integers, floats by their bits
+    for equality and by value for the difference."""
+    got, ref = (o if isinstance(o, tuple) else (o,) for o in (got, ref))
+    pairs = list(zip(got, ref))
+    if len(got) != len(ref) or any(a.shape != b.shape for a, b in pairs):
+        return False, float("inf")
+    equal = all(torch.equal(a.view(torch.int32) if a.is_floating_point() else a,
+                            b.view(torch.int32) if b.is_floating_point() else b)
+                for a, b in pairs)
+    err = max((float((a.double() - b.double()).abs().max()) if a.numel() else 0.0)
+              for a, b in pairs)
+    return equal, err
+
+
+def phase_rng():
+    """K-rng against its plain version on the card at `RNG_SIZES`: every
+    call form the paths make, bit for bit on every element (keys and words
+    as integers, floats by their bits), each wrapper launching once a call.
+    Each form is timed: device time of one call (`_device_ms`, warm), the
+    same with its inputs out of L2 (`_cold_ms`), and the host's wall a call
+    back to back (`_time_ms`, what a host-bound render pays), beside the
+    plain version's device time and wall and the bound. Returns the
+    numbers by ``(label, n)``."""
+    from rpt_tpu_torch.ops import threefry as tf
+
+    numbers = {}
+    for n in RNG_SIZES:
+        for label, name, kernel, plain, n_bytes, n_ops in _rng_forms(n, "cuda"):
+            wrapper = getattr(tf, name)
+            before = wrapper.launches
+            got = kernel()
+            launched = wrapper.launches - before
+            equal, err = _compare(got, plain())
+            ms, enqueue = _device_ms(kernel)
+            plain_ms, plain_enqueue = _device_ms(plain)
+            cold = _cold_ms(kernel, 5)
+            host = _time_ms(kernel, 20)
+            plain_host = _time_ms(plain, 5)
+            bound_ms, bound_by = _bound(n_bytes, n_ops, INT32_OPS_PER_S)
+            print(f"[K-rng] {label}, {n} lanes: bit-equal to the plain version {equal} (max "
+                  f"abs difference {err:g}), {launched} launch; device {ms * 1e3:.2f} us a call "
+                  f"({cold * 1e3:.2f} us with its inputs out of L2), host wall {host * 1e3:.2f} "
+                  f"us a call back to back; plain version device {plain_ms * 1e3:.1f} us, wall "
+                  f"{plain_host * 1e3:.1f} us; bound {bound_ms * 1e3:.2f} us ({bound_by}: "
+                  f"{n_bytes} bytes, {n_ops} int32 ops), {ms / bound_ms:.1f}x; enqueue "
+                  f"{enqueue:.3f} / {plain_enqueue:.3f} ms under the {HOLD_CYCLES} cycle hold")
+            if not equal or launched != 1:
+                raise RuntimeError(f"K-rng {label} at {n} lanes: bit-equal {equal}, "
+                                   f"{launched} launches")
+            numbers[(label, n)] = {"name": name, "max_abs_err": err, "ms": ms, "cold_ms": cold,
+                                   "host_ms": host, "plain_ms": plain_ms,
+                                   "plain_host_ms": plain_host, "bound_ms": bound_ms,
+                                   "bound_by": bound_by}
+    return numbers
+
+
+def _rng_entry(name: str, label: str, replaces: str, numbers: dict, side=()) -> dict:
+    """A K-rng kernel entry: ``label``'s numbers at 262,144 lanes, at 2^19
+    as ``n524288_*`` side fields, and the forms in ``side`` (prefix,
+    label) as side fields; launches and ``max_abs_err`` are filled in by
+    `_rng_entries`."""
+    small, large = RNG_SIZES
+    keys = ("ms", "cold_ms", "host_ms", "plain_ms", "plain_host_ms", "bound_ms")
+    entry = {"name": name, "route": "cuda", "source": "rpt_tpu_torch/csrc/threefry.cu",
+             "replaces": replaces, "form": label, "lanes": small,
+             **{k: numbers[(label, small)][k] for k in (*keys, "bound_by")},
+             "library_ms": None,
+             **{f"n{large}_{k}": numbers[(label, large)][k] for k in keys}}
+    for prefix, other in side:
+        entry.update({f"{prefix}_{k}": numbers[(other, small)][k] for k in keys})
+    return entry
+
+
+def _rng_entries(numbers: dict) -> list:
+    """The `kernels` line's K-rng entries: fold, split and uniform, each
+    with its launches summed over the paths the smoke drove and by path;
+    ``random_bits`` (no path calls it) rides as side fields of uniform."""
+    entries = [
+        _rng_entry("threefry_fold", "fold batch x int", "rpt_tpu/sampling.py:36", numbers,
+                   (("key_x_data", "fold key x data"),)),
+        _rng_entry("threefry_split", "split", "rpt_tpu/sampling.py:31", numbers),
+        _rng_entry("threefry_uniform", "uniform [0, 1)", "rpt_tpu/sampling.py:41", numbers,
+                   (("uniform2", "uniform2"), ("uniform3", "uniform3"), ("bits", "bits x3"))),
+    ]
+    for entry in entries:
+        names = {entry["name"]} | ({"threefry_bits"} if entry["name"] == "threefry_uniform"
+                                   else set())
+        errs = [v["max_abs_err"] for v in numbers.values() if v["name"] in names]
+        by_path = {path: counts[entry["name"]] for path, counts in RNG_LAUNCHES.items()}
+        entry.update(max_abs_err=max(errs), launches=sum(by_path.values()),
+                     launches_by_path=by_path)
+        if entry["launches"] <= 0:
+            raise RuntimeError(f"no path launched {entry['name']}")
+    return entries
+
+
+def _rng_counts() -> dict:
+    from rpt_tpu_torch.ops import threefry as tf
+
+    return {name: getattr(tf, name).launches for name in RNG_WRAPPERS}
+
+
+def _read_rng(path: str, shoots: bool = False) -> dict:
+    """Record the K-rng launches of ``path`` since `_zero_counts` (adding to
+    what an earlier run of the same path recorded) and fail where the path
+    drew no key (fold), no float (uniform) or, for a photon shoot, split
+    no chunk's keys."""
+    counts = _rng_counts()
+    need = ("threefry_fold", "threefry_uniform") + (("threefry_split",) if shoots else ())
+    missing = [name for name in need if counts[name] <= 0]
+    if missing:
+        raise RuntimeError(f"the {path} path never launched {missing}: {counts}")
+    seen = RNG_LAUNCHES.setdefault(path, dict.fromkeys(RNG_WRAPPERS, 0))
+    for name, n in counts.items():
+        seen[name] += n
+    return counts
+
+
+# `rpt_tpu_torch.sampling`'s RNG functions replaced by their plain versions
+# (`_plain_rng`): what the renders gave before K-rng.
+def _plain_rng_functions():
+    from rpt_tpu_torch.ops import threefry as tf
+
+    return {"fold_in": tf.fold_in_plain, "fold": tf.fold_in_plain,
+            "keys_for": tf.keys_for_plain, "random_bits": tf.random_bits_plain,
+            "uniform": lambda keys, lo=0.0, hi=1.0: tf.uniforms_plain(keys, 1, lo, hi)[0],
+            "uniform2": lambda keys: tf.uniforms_plain(keys, 2),
+            "uniform3": lambda keys: tf.uniforms_plain(keys, 3)}
+
+
+def phase_rng_renders(ex):
+    """The 32^2 point-beam golden render and the Cornell golden render
+    (48x48, 24 spp) twice: as shipped (K-rng) and with `rpt_tpu_torch.
+    sampling`'s RNG functions patched here to their plain versions (int64
+    torch ops); the radiance of each must be bit-equal, and only the first
+    may launch K-rng."""
+    import torch_cornell
+    from rpt_tpu_torch import sampling
+
+    def renders():
+        pb = ex.renderer("cuda", size=32, bounce=6, sample=2, photons=4000, seed=42)
+        pb.photon_point_query_beam_render(4000)
+        cornell = torch_cornell.renderer("cuda")
+        cornell.render()
+        return {"point-beam 32^2": pb._last_buffer.raw(), "Cornell": cornell._last_buffer.raw()}
+
+    _zero_counts()
+    shipped = renders()
+    shipped_counts = _rng_counts()
+    saved = {name: getattr(sampling, name) for name in _plain_rng_functions()}
+    try:
+        for name, fn in _plain_rng_functions().items():
+            setattr(sampling, name, fn)
+        _zero_counts()
+        plain = renders()
+        plain_counts = _rng_counts()
+    finally:
+        for name, fn in saved.items():
+            setattr(sampling, name, fn)
+    ok = sum(shipped_counts.values()) > 0 and not sum(plain_counts.values())
+    for label, raw in shipped.items():
+        same = raw.shape == plain[label].shape and np.array_equal(raw, plain[label])
+        differ = int((raw != plain[label]).sum()) if raw.shape == plain[label].shape else -1
+        ok = ok and same
+        print(f"[K-rng] {label} render with K-rng and with the plain RNG: bit-equal {same} "
+              f"({differ} of {raw.size} values differ), radiance mean {raw.mean():.6f}")
+    print(f"[K-rng] launches of the two renders: K-rng {shipped_counts}, plain {plain_counts}")
+    if not ok:
+        raise RuntimeError("the renders with K-rng differ from those with the plain RNG")
 
 
 def _cull_work(o, d, th, table, chunk: int = 2048):
@@ -638,8 +910,7 @@ def phase_dragon():
     r.sample(1, Buffer(r.width_, r.height_, r.filter_))
     warm = time.perf_counter() - t0
     r._sample_index, r.ray_counter = 0, RayCounter()
-    bvh_closest_hit.launches = 0
-    bvh_any_hit.launches = 0
+    _zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     img = r.render()
@@ -647,13 +918,14 @@ def phase_dragon():
     wall = time.perf_counter() - t0
     launches = {"bvh_closest_hit": bvh_closest_hit.launches,
                 "bvh_any_hit": bvh_any_hit.launches}
+    rng = _read_rng("dragon")
     segs = r.ray_counter.segments
     raw = r._last_buffer.raw()
     finite = bool(np.isfinite(raw).all())
     print(f"[dragon] {r.width_}x{r.height_} {r.num_samples_} spp {r.max_bounces_} bounces: "
           f"wall {wall:.3f} s (warm-up sample {warm:.3f} s), {segs} ray segments, "
           f"{segs / wall / 1e6:.3f} Mrays/s; image mean {img.mean():.4f} (radiance "
-          f"{raw.mean():.5f}), finite {finite}; launches {launches}")
+          f"{raw.mean():.5f}), finite {finite}; launches {launches}, K-rng {rng}")
     if not finite or img.shape != (r.height_, r.width_, 3) or img.mean() <= 0:
         raise RuntimeError("dragon render is not a finite, non-black image of the right shape")
     for name, n in launches.items():
@@ -885,16 +1157,22 @@ def _zero_counts():
     from rpt_tpu_torch.ops.bvh_traverse import bvh_any_hit, bvh_closest_hit
     from rpt_tpu_torch.ops.sphere_sweep import sphere_sweep
 
-    for wrapper in (knn_query, knn_radius, sphere_sweep, bvh_closest_hit, bvh_any_hit):
+    from rpt_tpu_torch.ops import threefry
+
+    for wrapper in (knn_query, knn_radius, sphere_sweep, bvh_closest_hit, bvh_any_hit,
+                    *(getattr(threefry, name) for name in RNG_WRAPPERS)):
         wrapper.launches = 0
     knn_query.by_k.clear()
 
 
-def _read_counts() -> dict:
+def _read_counts(path: str, shoots: bool = False) -> dict:
+    """The launches of K-knn, K-sweep, K1 and K2 since `_zero_counts`;
+    K-rng's are recorded for ``path`` by `_read_rng`."""
     from rpt_tpu_torch.accel.knn import knn_query, knn_radius
     from rpt_tpu_torch.ops.bvh_traverse import bvh_any_hit, bvh_closest_hit
     from rpt_tpu_torch.ops.sphere_sweep import sphere_sweep
 
+    _read_rng(path, shoots)
     return {"knn_query": knn_query.launches, "knn_query_by_k": dict(knn_query.by_k),
             "knn_radius": knn_radius.launches, "sphere_sweep": sphere_sweep.launches,
             "bvh_closest_hit": bvh_closest_hit.launches, "bvh_any_hit": bvh_any_hit.launches}
@@ -1040,7 +1318,7 @@ def phase_photonmap(spp_cap):
     r = ex.renderer("cuda", sample=spp, seed=0)
     _zero_counts()
     img = r.photon_map_render(ex.photons)
-    launches = _read_counts()
+    launches = _read_counts("photonmap", shoots=True)
     s, c = r.phase_seconds, r.photon_counts
     finite = _check_image("photon-map render", r, img)
     note = "" if spp == ex.sample else f" (spp lowered from {ex.sample} to {spp})"
@@ -1078,8 +1356,8 @@ def phase_photonmap_default(spp_cap):
     """`examples/torch_photon_map.py` at its full size (512^2, 10 spp, 10M
     photons, 5 bounces) with `Renderer`'s default gather, 50 / 50: the
     scene has no medium, so each of a sample's 16 wavefronts launches K-knn
-    once, at k = 50 over the surface photons, and nothing else of the
-    hand-written kernels. Then K-knn at k = 50 on sample 0's 16 gathers,
+    once, at k = 50 over the surface photons, and no other hand-written
+    kernel but K-rng. Then K-knn at k = 50 on sample 0's 16 gathers,
     captured from its camera pass: each timed, the first held to brute
     force. Returns ``(numbers, launches by k)``."""
     import torch_photon_map as ex
@@ -1088,7 +1366,7 @@ def phase_photonmap_default(spp_cap):
     r = ex.renderer("cuda", sample=spp)
     _zero_counts()
     img = r.photon_map_render(ex.photons)
-    launches = _read_counts()
+    launches = _read_counts("photonmap-default", shoots=True)
     s, c = r.phase_seconds, r.photon_counts
     finite = _check_image("photon_map.py render", r, img)
     raw = r._last_buffer.raw()
@@ -1149,7 +1427,7 @@ def phase_skybox_photons(spp_cap):
     r = ex.renderer("cuda", sample=spp)
     _zero_counts()
     img = r.photon_map_render(ex.PHOTONS)
-    launches = _read_counts()
+    launches = _read_counts("skybox-photons", shoots=True)
     s, c = r.phase_seconds, r.photon_counts
     finite = _check_image("[skybox-photons]", r, img)
     raw = r._last_buffer.raw().mean(axis=2)
@@ -1254,7 +1532,7 @@ def phase_sharded(r_dragon, r_lamp):
             got = parallel.render_sharded(scene, r.camera, r.width_, r.height_, r.num_samples_,
                                           r.max_bounces_, mesh, key)
             wall = time.perf_counter() - t0
-            dragon = _read_counts()
+            dragon = _read_counts("sharded render")
             t0 = time.perf_counter()
             ref, _ = _path_pass(scene, r.camera, r.width_, r.height_, key, 0, r.num_samples_,
                                 r.max_bounces_)
@@ -1273,7 +1551,7 @@ def phase_sharded(r_dragon, r_lamp):
             surface, volume = parallel.shoot_photons_sharded(scene, shoot_key, photons, r.watts_,
                                                              ph.POINT_BEAM, mesh)
             t_shoot = time.perf_counter() - t0
-            shoot = _read_counts()
+            shoot = _read_counts("sharded shoot", shoots=True)
             li, _ = ph._find_object_light(scene)
             s_ref, v_ref, dropped = ph._shoot_launch(scene, scene.tables, li, r.watts_ / photons,
                                                      48, photons, sampling.fold_in(shoot_key, 0))
@@ -1297,7 +1575,7 @@ def phase_sharded(r_dragon, r_lamp):
                                                  r.gather_size_, r.gather_size_volume_, mesh,
                                                  camera_key)
             wall = time.perf_counter() - t0
-            lamp = _read_counts()
+            lamp = _read_counts("sharded photon render")
             t0 = time.perf_counter()
             ref = _photon_pass(scene, r.camera, r.width_, r.height_, pmap, camera_key,
                                r.num_samples_, r.gather_size_, r.gather_size_volume_, True)
@@ -1344,7 +1622,7 @@ def phase_drivers():
         img = r.render()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = _read_counts()
+        launches = _read_counts("drivers")
         finite = _check_image(f"[drivers] {name}", r, img)
         print(f"[drivers] {name}: {r.width_}x{r.height_} {r.num_samples_} spp "
               f"{r.max_bounces_} bounces{' (a medium)' if r.compiled.media else ''}, "
@@ -1408,7 +1686,7 @@ def phase_beambeam(spp_cap):
     r = ex.renderer("cuda", sample=spp, seed=0)
     _zero_counts()
     img = r.photon_beam_query_beam_render(ex.photons)
-    launches = _read_counts()
+    launches = _read_counts("beambeam", shoots=True)
     s, c = r.phase_seconds, r.photon_counts
     finite = _check_image("beam-beam render", r, img)
     beams = r.photon_map.beams
@@ -1485,7 +1763,7 @@ def phase_volpath(spp: int):
     """The volumetric path tracer at its example's width through
     `iterative_render`, its 1000 samples cut to ``spp``; one untimed
     warm-up sample first. The lampshade's 12 triangles take the dense
-    test, so the path launches none of the hand-written kernels."""
+    test, so the path launches no hand-written kernel but K-rng."""
     import torch_volumetric_pathtrace_lampshade as ex
     from rpt_tpu_torch import Buffer
     from rpt_tpu_torch.renderer import RayCounter
@@ -1500,7 +1778,7 @@ def phase_volpath(spp: int):
     buffer = r.iterative_render(ex.every_x, lambda i, b: calls.append(i))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = _read_counts()
+    launches = _read_counts("volpath")
     raw, img = buffer.raw(), buffer.image()
     segs = r.ray_counter.segments
     finite = bool(np.isfinite(raw).all())
@@ -1514,7 +1792,8 @@ def phase_volpath(spp: int):
     if not calls or calls[-1] != spp or segs <= spp * r.width_ * r.height_:
         raise RuntimeError("iterative_render did not trace every sample")
     if any(v for v in launches.values()):
-        raise RuntimeError(f"the lampshade's volumetric path launched a kernel: {launches}")
+        raise RuntimeError(f"the lampshade's volumetric path launched K1/K2, K-knn or K-sweep: "
+                           f"{launches}")
 
 
 def _golden(name):
@@ -1607,7 +1886,7 @@ def phase_pegasus(spp_cap):
     img = r.render()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = _read_counts()
+    launches = _read_counts("pegasus")
     segs, raw = r.ray_counter.segments, r._last_buffer.raw()
     finite = _check_image("[pegasus]", r, img)
     note = "" if spp == ex.SPP else f" (spp lowered from {ex.SPP} to {spp})"
@@ -1707,7 +1986,7 @@ def phase_teapot():
     img = r.render()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = _read_counts()
+    launches = _read_counts("teapot")
     finite = _check_image("[teapot]", r, img)
     print(f"[teapot] {compiled.n_tris} triangles, {r.width_}x{r.height_} {r.num_samples_} spp: "
           f"wall {wall:.3f} s, image mean {img.mean():.4f}, finite {finite}; launches {launches}")
@@ -1729,7 +2008,7 @@ def phase_marbles(spp_cap):
     example's 2000 would take minutes a frame); between the frames one
     frame's RK4 integration of `MarblesSystem` on the card (625 steps of
     1e-4 s and the remainder), timed. No mesh of the scene has more than
-    two triangles, so the path launches none of the hand-written kernels."""
+    two triangles, so the path launches no hand-written kernel but K-rng."""
     import _torch_assets
     import torch_marbles as ex
     from rpt_tpu_torch import MarblesSystem
@@ -1746,7 +2025,7 @@ def phase_marbles(spp_cap):
         img = r.render()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = _read_counts()
+        launches = _read_counts("marbles")
         finite = _check_image("[marbles]", r, img)
         segs = r.ray_counter.segments
         t0 = time.perf_counter()
@@ -1763,7 +2042,7 @@ def phase_marbles(spp_cap):
         if not bool(state.pos.isfinite().all()) or moved <= 0:
             raise RuntimeError("the marbles' RK4 state is not finite or did not move")
         if any(v for v in launches.values()):
-            raise RuntimeError(f"the marbles' path launched a kernel: {launches}")
+            raise RuntimeError(f"the marbles' path launched K1/K2, K-knn or K-sweep: {launches}")
 
 
 def main():
@@ -1784,12 +2063,14 @@ def main():
     t0 = time.perf_counter()
     smi = phase_device()
     phase_build()
+    rng = phase_rng()
     r, ex, launches = phase_render(args.spp)
     kernels = [phase_sweep(r, ex), phase_knn(r)]
     for k in kernels:
         k["launches"] = launches[k["name"]]
     kernels[1]["radius_launches"] = launches["knn_radius"]
     phase_golden(ex)
+    phase_rng_renders(ex)
     r_dragon, path_launches = phase_dragon()
     traverse = phase_traverse(r_dragon)
     for k in traverse:
@@ -1842,6 +2123,8 @@ def main():
     drivers = phase_drivers()
     k1["drivers_launches"], k2["drivers_launches"] = (drivers["bvh_closest_hit"],
                                                       drivers["bvh_any_hit"])
+    kernels += _rng_entries(rng)
+    print(f"[K-rng] launches by path: {RNG_LAUNCHES}")
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -40,6 +40,7 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U = ctypes.c_uint32
 
 # C signatures of the entry points (pointers and the stream as void*)
 _SIGNATURES = {
@@ -61,6 +62,14 @@ _SIGNATURES = {
     # origin, dir, n, nodes, leaves, t_min, limit, active, out_hit,
     # ray_counts, warp_counts, stream
     "rpt_bvh_any_hit": [_P, _P, _I, _P, _P, _F, _P, _P, _P, _P, _P, _P],
+    # keys, key_stride, data, data_stride, data_scalar, n, out, stream
+    "rpt_threefry_fold": [_P, _I, _P, _I, _U, _I, _P, _P],
+    # key, n, out, stream
+    "rpt_threefry_split": [_P, _I, _P, _P],
+    # keys, n, count, lo, scale, out, stream
+    "rpt_threefry_uniform": [_P, _I, _I, _F, _F, _P, _P],
+    # keys, n, count, out, stream
+    "rpt_threefry_bits": [_P, _I, _I, _P, _P],
 }
 
 

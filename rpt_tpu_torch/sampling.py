@@ -17,6 +17,11 @@ generator bit for bit in torch, so both packages trace the same rays:
 * ``uniform`` draws 32 random bits as the XOR of the two hash words of
   counter ``(0, i)`` and maps ``bits >> 9 | 0x3F800000`` to ``[1, 2) - 1``.
 
+The generator lives in `ops/threefry.py`: for CPU tensors its plain
+version (int64 torch ops), for CUDA tensors K-rng (`csrc/threefry.cu`),
+one launch a call of ``fold_in``/``fold``/``keys_for``/``random_bits``/
+``uniform``/``uniform2``/``uniform3``.
+
 The samplers reproduce the reference's distributions (`material.rs:173-219`,
 `camera.rs:74`, `photon.rs:736-743`).
 """
@@ -27,31 +32,13 @@ import math
 
 import torch
 
+from .ops import threefry
+from .ops.threefry import M32, bits_to_unit, threefry2x32  # noqa: F401  (the RNG's public names)
 from .vec import Vec3, from_local
 
 TWO_PI = 2.0 * math.pi
 INV_PI = 1.0 / math.pi
 INV_4PI = 1.0 / (4.0 * math.pi)
-
-M32 = 0xFFFFFFFF
-_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
-
-
-def threefry2x32(k1, k2, x1, x2):
-    """Threefry-2x32 with 20 rounds, as `jax._src.prng._threefry2x32_lowering`.
-    All arguments are int64 tensors (or ints) holding uint32 values; they
-    broadcast. Returns the two uint32 output words as int64 tensors."""
-    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
-    x1 = (x1 + ks[0]) & M32
-    x2 = (x2 + ks[1]) & M32
-    for i in range(5):
-        for r in _ROTATIONS[i % 2]:
-            x1 = (x1 + x2) & M32
-            x2 = ((x2 << r) | (x2 >> (32 - r))) & M32
-            x2 = x1 ^ x2
-        x1 = (x1 + ks[(i + 1) % 3]) & M32
-        x2 = (x2 + ks[(i + 2) % 3] + (i + 1)) & M32
-    return x1, x2
 
 
 def key(seed: int, device=None) -> torch.Tensor:
@@ -64,61 +51,38 @@ def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in`` over a key or a batch of keys (..., 2).
     ``data`` is an int or an integer tensor that broadcasts against the
     batch; it is taken modulo 2^32, as jax converts it to uint32."""
-    if isinstance(data, torch.Tensor):
-        data = data.to(torch.int64) & M32
-    else:
-        data = int(data) & M32
-    o1, o2 = threefry2x32(keys[..., 0], keys[..., 1], 0, data)
-    if not isinstance(o1, torch.Tensor) or o1.shape != o2.shape:
-        o1, o2 = torch.broadcast_tensors(torch.as_tensor(o1), torch.as_tensor(o2))
-    return torch.stack([o1, o2], dim=-1)
+    return threefry.threefry_fold(keys, data)
 
 
 def fold(keys: torch.Tensor, data) -> torch.Tensor:
     """Fold a static tag into a batch of keys (purpose separation)."""
-    return fold_in(keys, data)
+    return threefry.threefry_fold(keys, data)
 
 
 def keys_for(key: torch.Tensor, n: int) -> torch.Tensor:
     """Derive n per-ray keys from a base key: shape (n, 2) — the
     partitionable ``jax.random.split(key, n)``."""
-    counts = torch.arange(n, dtype=torch.int64, device=key.device)
-    o1, o2 = threefry2x32(key[0], key[1], 0, counts)
-    o1, o2 = torch.broadcast_tensors(o1, o2)
-    return torch.stack([o1, o2], dim=-1)
+    return threefry.threefry_split(key, n)
 
 
 def random_bits(keys: torch.Tensor, count: int) -> torch.Tensor:
     """32-bit random words for counters 0..count-1 per key: (..., count)
     int64 — the partitionable ``jax.random.bits`` layout."""
-    c = torch.arange(count, dtype=torch.int64, device=keys.device)
-    o1, o2 = threefry2x32(keys[..., 0:1], keys[..., 1:2], 0, c)
-    return o1 ^ o2
-
-
-def bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
-    """uint32 words -> float32 in [0, 1) exactly as ``jax.random.uniform``."""
-    fbits = (bits >> 9) | 0x3F800000
-    return fbits.to(torch.int32).view(torch.float32) - 1.0
+    return threefry.threefry_bits(keys, count)
 
 
 def uniform(keys: torch.Tensor, lo=0.0, hi=1.0) -> torch.Tensor:
     """One uniform float per key, in [lo, hi)."""
-    u = bits_to_unit(random_bits(keys, 1)[..., 0])
-    if lo == 0.0 and hi == 1.0:
-        return u
-    return lo + (hi - lo) * u
+    return threefry.threefry_uniform(keys, 1, lo, hi)[0]
 
 
 def uniform2(keys: torch.Tensor):
     """Two independent uniforms per key."""
-    u = bits_to_unit(random_bits(keys, 2))
-    return u[..., 0], u[..., 1]
+    return threefry.threefry_uniform(keys, 2)
 
 
 def uniform3(keys: torch.Tensor):
-    u = bits_to_unit(random_bits(keys, 3))
-    return u[..., 0], u[..., 1], u[..., 2]
+    return threefry.threefry_uniform(keys, 3)
 
 
 def unit_disc(r1, r2):

@@ -453,3 +453,47 @@ def test_bvh_kernels_match_plain_on_card():
     assert (bvh_closest_hit.launches, bvh_any_hit.launches) == before
     assert bool((counts[~sparse] == 0).all()) and bool((counts[sparse, 0] > 0).all())
     assert 0.0 < live_share <= 1.0
+
+
+@pytest.mark.cuda
+def test_threefry_kernels_match_plain_on_card():
+    """K-rng against its plain version on the card, bit for bit on every
+    element: fold (one key x wide data, a batch x an int, a batch x a
+    batch, (A, B) keys, (A, 1) keys x (B,) data), split, uniform at three
+    ranges, uniform2, uniform3 and the raw words, at 1000 lanes (no
+    multiple of a block). Each wrapper launches its kernel once per call;
+    an empty batch launches nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    from rpt_tpu_torch.ops import threefry as tf
+
+    dev, n = "cuda", 1000
+    rng = np.random.default_rng(3)
+    key = torch.tensor([7, 2**32 - 3], dtype=torch.int64, device=dev)
+    keys = torch.tensor(rng.integers(0, 2**32, (n, 2)), dtype=torch.int64, device=dev)
+    data = torch.tensor(np.concatenate([rng.integers(-2**40, 2**40, n - 3), [-1, 2**31, 2**32]]),
+                        dtype=torch.int64, device=dev)
+    grid = keys[:980].reshape(49, 20, 2)
+    column = keys[:49].reshape(49, 1, 2)
+
+    def launched(wrapper, *args):
+        before = wrapper.launches
+        out = wrapper(*args)
+        assert wrapper.launches == before + 1
+        return out
+
+    for k, d in ((key, data), (key, 5), (keys, 2**32 + 7), (keys, data), (grid, 3),
+                 (grid, data[:980].reshape(49, 20)), (column, data[:20])):
+        assert torch.equal(launched(tf.threefry_fold, k, d), tf.fold_in_plain(k, d))
+    assert torch.equal(launched(tf.threefry_split, key, n), tf.keys_for_plain(key, n))
+    for lo, hi in ((-1.0 / 512.0, 1.0 / 512.0), (-0.25, 0.25), (0.0, 1.0)):
+        (u,) = launched(tf.threefry_uniform, keys, 1, lo, hi)
+        assert torch.equal(u.view(torch.int32), tf.uniforms_plain(keys, 1, lo, hi)[0]
+                           .view(torch.int32))
+    for count, k in ((2, keys), (3, keys), (3, grid)):
+        for a, b in zip(launched(tf.threefry_uniform, k, count), tf.uniforms_plain(k, count)):
+            assert a.is_contiguous() and torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert torch.equal(launched(tf.threefry_bits, grid, 3), tf.random_bits_plain(grid, 3))
+    before = tf.threefry_fold.launches
+    assert tf.threefry_fold(keys[:0], 1).shape == (0, 2)
+    assert tf.threefry_fold.launches == before

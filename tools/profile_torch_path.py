@@ -15,7 +15,8 @@ then ``--spp`` samples under `torch.profiler`, and prints the wall time,
 the time the device was busy (the union of its kernels' intervals), that
 share of the wall, the number of kernels launched (and a sample) and the
 kernels that took the most device time, among them K1
-(``closest_hit_kernel``) and K2 (``any_hit_kernel``). For the pegasus it
+(``closest_hit_kernel``) and K2 (``any_hit_kernel``), and K-rng's
+launches and device time (``threefry_*``) beside the totals. For the pegasus it
 also prints the share of the sky's lookup (`Hdri.get_color`, which the
 path makes on every lane of every level): its host time against the
 wall, and its kernels' device time against the busy time. Imports

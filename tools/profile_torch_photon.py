@@ -105,6 +105,12 @@ def _profiled(name, fn, device, annotations=(), samples=None):
           + (f" ({len(kernels) / samples:.0f} a sample)" if samples else ""))
     for kname, (ms, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
         print(f"   {ms:10.1f} ms {count:8d}x  {kname[:90]}")
+    rng = [v for kname, v in by_name.items() if "threefry_" in kname]
+    rng_ms, rng_n = sum(ms for ms, _ in rng), sum(count for _, count in rng)
+    print(f"   K-rng (threefry_* kernels): {rng_n} launches"
+          + (f" ({rng_n / samples:.0f} a sample)" if samples else "")
+          + f" of {len(kernels)}, {rng_ms:.1f} ms device ({100.0 * rng_ms / max(busy, 1e-9):.1f}%"
+          f" of the busy time)")
     for label in annotations:
         ranges = [e for e in events if e.name == label
                   and e.device_type == torch.autograd.DeviceType.CPU]
