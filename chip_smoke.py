@@ -9,14 +9,16 @@ per source, in parallel) and drives every ported path end to end:
   plain version (int64 torch ops) in every call form the paths make
   (fold of one key with a tensor of wide data, of a batch with an int and
   with a batch, of (A, B) keys; split; uniform at three ranges, uniform2,
-  uniform3; the raw words) at 262,144 lanes and at the photon shoot's
-  chunk of 2^19, bit for bit on every element, each timed on the device
-  and on the host beside its plain version and its bound; then the 32^2
-  point-beam and the Cornell golden renders, once as shipped and once with
-  `rpt_tpu_torch.sampling`'s RNG functions patched here to the plain
+  uniform3; the raw words; the draw form, a key's chain of folds and its
+  draws in one launch, as the camera, `sample_f`, a light sampler and a
+  materialised chain call it) at 262,144 lanes and
+  at the photon shoot's chunk of 2^19, bit for bit on every element, each
+  timed on the device and on the host beside its plain version and its
+  bound; then the 32^2 point-beam and the Cornell golden renders, once as
+  shipped and once with K-rng's wrappers patched here to the plain
   versions, bit-equal. Every path below draws its numbers through K-rng:
   its launches are read with the path's other counts, and each path must
-  have folded keys and drawn floats through it (a photon shoot also split
+  have drawn its floats through the draw form (a photon shoot also split
   keys);
 - the point-photon x beam-query path at the lampshade example's own
   parameters; it launches K-sweep (once per camera wavefront) and K-knn
@@ -80,9 +82,10 @@ per source, in parallel) and drives every ported path end to end:
 - 17 drivers that no other phase renders (`[drivers]`), each built by its
   ``renderer("cuda")`` and cut to a quarter of its size and 2 spp.
 
-The K-rng entries of the kernel report (fold, split, uniform) carry the
-launches of every path by path (``launches_by_path``) and their sum;
-``random_bits``, which no path calls, rides as side fields of uniform's.
+The K-rng entries of the kernel report (fold, split, uniform, draw) carry
+the launches of every path by path (``launches_by_path``) and their sum;
+``random_bits``, which no path calls, rides as side fields of uniform's,
+and uniform itself, whose call sites the draw form took, has none.
 The counting variants of K-knn, K1 and K2 print what a query or a ray
 costs (levels, cells and candidates; steps, leaf slots and the warps'
 live-lane share). A K-knn gather is timed on every wavefront of a sample,
@@ -231,6 +234,10 @@ def phase_build():
     frames = [frame for _, frame, _ in found]
     local = [f for f in frames if not f.startswith("0 bytes stack frame, 0 bytes spill stores, "
                                                    "0 bytes spill loads")]
+    draw = [lines[i + 2].strip() + "; " + lines[i + 3].strip()
+            for i, line in enumerate(lines[:-3])
+            if "Compiling entry function" in line and "threefry_draw_kernel" in line]
+    print(f"[build] K-rng's draw form (chain and draws from the parameter struct): {draw}")
     print(f"[build] K-knn kernels with the list in registers: "
           f"{'; '.join(f'{name}{regs}' for name, _, regs in found)}; of which with local "
           f"memory: {len(local)} {local}")
@@ -305,12 +312,15 @@ def _bound(n_bytes: float, n_ops: float, ops_per_s: float = FP32_OPS_PER_S):
 # `csrc/threefry.cu` (a hash: 20 rounds of add, funnel shift and xor, five
 # key injections of three adds, two initial adds, the schedule's two xors;
 # uniform maps a word with xor, shift, or, sub, mul and add), and the
-# int32 rate, taken as half the float32 rate.
+# int32 rate: 64 int32 lanes a multiprocessor, one instruction a clock,
+# over the 132 multiprocessors at the 1.98 GHz boost clock (the float32
+# rate counts 128 lanes a multiprocessor and a fused multiply-add as two).
 RNG_SIZES = (1 << 18, 1 << 19)
 HASH_OPS = 20 * 3 + 5 * 3 + 2 + 2
 MAP_OPS = 6
-INT32_OPS_PER_S = FP32_OPS_PER_S / 2
-RNG_WRAPPERS = ("threefry_fold", "threefry_split", "threefry_uniform", "threefry_bits")
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+RNG_WRAPPERS = ("threefry_fold", "threefry_split", "threefry_uniform", "threefry_bits",
+                "threefry_draw")
 # K-rng launches of every path the smoke drives, by path (`_read_rng`)
 RNG_LAUNCHES: dict = {}
 # Cycles of `torch.cuda._sleep` (about 10 ms at the H100's clocks) that
@@ -381,7 +391,51 @@ def _rng_forms(n: int, dev):
                   n * 28, n * 3 * (HASH_OPS + MAP_OPS)))
     forms.append(("bits x3", "threefry_bits", lambda: tf.threefry_bits(keys, 3),
                   lambda: tf.random_bits_plain(keys, 3), n * 40, n * 3 * (HASH_OPS + 1)))
+    for label, args in _draw_forms(key, keys, data, n).items():
+        forms.append((label, "threefry_draw", lambda a=args: _drawn(tf.threefry_draw(*a)),
+                      lambda a=args: _drawn(tf.draw_plain(*a)), *_draw_work(*args)))
     return forms
+
+
+def _draw_forms(key, keys, data, n: int) -> dict:
+    """The draw form's call forms on the paths, by label: ``(keys, data,
+    tags, draws, key_out)``: the camera's jitter (one key x pixel ids,
+    tag s; two draws at +-1/512), `sample_f`'s on a level of the
+    surface path (a batch of trace keys, folds b and 3; r1 r2 and rr), a
+    sphere light's from the estimate keys (one key x pixel ids, folds s,
+    4, b, 2 and the light's; uniform2), and a chain materialised (the key
+    written, no draw)."""
+    from rpt_tpu_torch.ops import threefry as tf
+
+    D = tf.Draw
+    jitter = D((1,), 1, -1.0 / 512.0, 1.0 / 512.0), D((2,), 1, -1.0 / 512.0, 1.0 / 512.0)
+    return {
+        "draw camera (key x pixel ids; jitter)": (key, data, (5,), jitter, False),
+        "draw sample_f (batch, chain of 2; r1 r2, rr)":
+            (keys, None, (1, 3), (D((0xB5DF,), 2), D((0xF7E5,))), False),
+        "draw light (key x pixel ids, chain of 5; uniform2)":
+            (key, data, (5, 4, 1, 2, 0x1100), (D((0x5A1,), 2),), False),
+        "draw key out (key x pixel ids, chain of 2)": (key, data, (5, 4), (), True),
+    }
+
+
+def _drawn(result) -> tuple:
+    """A draw's outputs as one tuple: its floats, then its keys if any."""
+    floats, out_keys = result
+    return floats if out_keys is None else (*floats, out_keys)
+
+
+def _draw_work(keys, data, tags, draws, key_out) -> tuple:
+    """(bytes, int32 operations) of a draw over its lanes: each key row and
+    data word read once, each float and key written once; a lane's hashes
+    (its data fold, its chain, each draw's suffix and words) at `HASH_OPS`,
+    each word's map at `MAP_OPS`."""
+    n = data.shape[0] if data is not None else keys.shape[0]
+    words = sum(d.count for d in draws)
+    rows = 1 if keys.dim() == 1 else n
+    n_bytes = 16 * rows + (8 * n if data is not None else 0) + 4 * n * words + 16 * n * key_out
+    hashes = (data is not None) + len(tags) + sum(len(d.tags) + d.count for d in draws)
+    return n_bytes, n * (hashes * HASH_OPS + words * MAP_OPS)
 
 
 def _compare(got, ref):
@@ -460,16 +514,27 @@ def _rng_entry(name: str, label: str, replaces: str, numbers: dict, side=()) -> 
 
 
 def _rng_entries(numbers: dict) -> list:
-    """The `kernels` line's K-rng entries: fold, split and uniform, each
-    with its launches summed over the paths the smoke drove and by path;
-    ``random_bits`` (no path calls it) rides as side fields of uniform."""
+    """The `kernels` line's K-rng entries: fold, split, uniform and draw,
+    each with its launches summed over the paths the smoke drove and by
+    path; ``random_bits`` rides as side fields of uniform, and the draw
+    form's other call forms as side fields of its entry. Since the draw
+    form took the paths' draws, uniform is held to its plain version here
+    but no path launches it; fold, split and draw must each have been
+    launched by some path."""
+    draw_side = [(f"form{i}", label) for i, label in enumerate(
+        ("draw camera (key x pixel ids; jitter)",
+         "draw light (key x pixel ids, chain of 5; uniform2)",
+         "draw key out (key x pixel ids, chain of 2)"), 1)]
     entries = [
         _rng_entry("threefry_fold", "fold batch x int", "rpt_tpu/sampling.py:36", numbers,
                    (("key_x_data", "fold key x data"),)),
         _rng_entry("threefry_split", "split", "rpt_tpu/sampling.py:31", numbers),
         _rng_entry("threefry_uniform", "uniform [0, 1)", "rpt_tpu/sampling.py:41", numbers,
                    (("uniform2", "uniform2"), ("uniform3", "uniform3"), ("bits", "bits x3"))),
+        _rng_entry("threefry_draw", "draw sample_f (batch, chain of 2; r1 r2, rr)",
+                   "rpt_tpu/sampling.py:41", numbers, draw_side),
     ]
+    entries[-1].update({f"{prefix}_label": label for prefix, label in draw_side})
     for entry in entries:
         names = {entry["name"]} | ({"threefry_bits"} if entry["name"] == "threefry_uniform"
                                    else set())
@@ -477,7 +542,7 @@ def _rng_entries(numbers: dict) -> list:
         by_path = {path: counts[entry["name"]] for path, counts in RNG_LAUNCHES.items()}
         entry.update(max_abs_err=max(errs), launches=sum(by_path.values()),
                      launches_by_path=by_path)
-        if entry["launches"] <= 0:
+        if entry["launches"] <= 0 and entry["name"] != "threefry_uniform":
             raise RuntimeError(f"no path launched {entry['name']}")
     return entries
 
@@ -491,10 +556,10 @@ def _rng_counts() -> dict:
 def _read_rng(path: str, shoots: bool = False) -> dict:
     """Record the K-rng launches of ``path`` since `_zero_counts` (adding to
     what an earlier run of the same path recorded) and fail where the path
-    drew no key (fold), no float (uniform) or, for a photon shoot, split
-    no chunk's keys."""
+    drew no float through the draw form or, for a photon shoot, split no
+    chunk's keys."""
     counts = _rng_counts()
-    need = ("threefry_fold", "threefry_uniform") + (("threefry_split",) if shoots else ())
+    need = ("threefry_draw",) + (("threefry_split",) if shoots else ())
     missing = [name for name in need if counts[name] <= 0]
     if missing:
         raise RuntimeError(f"the {path} path never launched {missing}: {counts}")
@@ -504,26 +569,26 @@ def _read_rng(path: str, shoots: bool = False) -> dict:
     return counts
 
 
-# `rpt_tpu_torch.sampling`'s RNG functions replaced by their plain versions
-# (`_plain_rng`): what the renders gave before K-rng.
+# K-rng's wrappers in `ops/threefry.py`, through which `rpt_tpu_torch.
+# sampling` (and its `KeyPath`) makes every draw, by name, and their plain
+# versions: the unfused int64 torch chains, what the renders gave before
+# K-rng (the draw form's is `draw_plain`, its fold chain then uniform).
 def _plain_rng_functions():
     from rpt_tpu_torch.ops import threefry as tf
 
-    return {"fold_in": tf.fold_in_plain, "fold": tf.fold_in_plain,
-            "keys_for": tf.keys_for_plain, "random_bits": tf.random_bits_plain,
-            "uniform": lambda keys, lo=0.0, hi=1.0: tf.uniforms_plain(keys, 1, lo, hi)[0],
-            "uniform2": lambda keys: tf.uniforms_plain(keys, 2),
-            "uniform3": lambda keys: tf.uniforms_plain(keys, 3)}
+    return {"threefry_fold": tf.fold_in_plain, "threefry_split": tf.keys_for_plain,
+            "threefry_uniform": tf.uniforms_plain, "threefry_bits": tf.random_bits_plain,
+            "threefry_draw": tf.draw_plain}
 
 
 def phase_rng_renders(ex):
     """The 32^2 point-beam golden render and the Cornell golden render
-    (48x48, 24 spp) twice: as shipped (K-rng) and with `rpt_tpu_torch.
-    sampling`'s RNG functions patched here to their plain versions (int64
-    torch ops); the radiance of each must be bit-equal, and only the first
-    may launch K-rng."""
+    (48x48, 24 spp) twice: as shipped (K-rng) and with K-rng's wrappers
+    patched here to their plain versions (int64 torch ops; the draw form
+    to its unfused composition); the radiance of each must be bit-equal,
+    and only the first may launch K-rng."""
     import torch_cornell
-    from rpt_tpu_torch import sampling
+    from rpt_tpu_torch.ops import threefry as tf
 
     def renders():
         pb = ex.renderer("cuda", size=32, bounce=6, sample=2, photons=4000, seed=42)
@@ -535,17 +600,17 @@ def phase_rng_renders(ex):
     _zero_counts()
     shipped = renders()
     shipped_counts = _rng_counts()
-    saved = {name: getattr(sampling, name) for name in _plain_rng_functions()}
+    saved = {name: getattr(tf, name) for name in _plain_rng_functions()}
+    _zero_counts()
     try:
         for name, fn in _plain_rng_functions().items():
-            setattr(sampling, name, fn)
-        _zero_counts()
+            setattr(tf, name, fn)
         plain = renders()
-        plain_counts = _rng_counts()
     finally:
         for name, fn in saved.items():
-            setattr(sampling, name, fn)
-    ok = sum(shipped_counts.values()) > 0 and not sum(plain_counts.values())
+            setattr(tf, name, fn)
+    plain_counts = _rng_counts()
+    ok = shipped_counts["threefry_draw"] > 0 and not sum(plain_counts.values())
     for label, raw in shipped.items():
         same = raw.shape == plain[label].shape and np.array_equal(raw, plain[label])
         differ = int((raw != plain[label]).sum()) if raw.shape == plain[label].shape else -1

@@ -53,8 +53,8 @@ class Camera:
 
     def cast_ray(self, x, y, keys) -> Ray:
         """Cast a batch of rays; (x, y) are (N,) tensors normalized to
-        [-1, 1] (camera.rs:65-82). ``keys`` is an (N, 2) key batch used
-        only when aperture > 0."""
+        [-1, 1] (camera.rs:65-82). ``keys`` (an (N, 2) key batch or a
+        `sampling.KeyPath`) is used only when aperture > 0."""
         dev = x.device
         d = 1.0 / math.tan(self.fov / 2.0)
         direction = _normalize(self.direction)

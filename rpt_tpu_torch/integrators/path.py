@@ -151,9 +151,12 @@ def _shadow_visible_batch(scene, tables, pos: Vec3, pending, mask):
 def trace_surface(scene, tables, ray: Ray, keys, max_bounces: int, return_stats: bool = False):
     """Radiance of a wavefront of camera rays with no participating media
     (`rpt_tpu/integrators/path.py:219`, default schedule). ``keys`` are the
-    (n, 2) per-lane trace keys. With ``return_stats``, also returns the
-    number of traced ray segments (camera/bounce + shadow), as a 0-dim
-    int64 tensor, for Mrays/s accounting."""
+    (n, 2) per-lane trace keys (a tensor or a `sampling.KeyPath`; each
+    draw derives its key from them in its own launch). With
+    ``return_stats``, also returns the number of traced ray segments
+    (camera/bounce + shadow), as a 0-dim int64 tensor, for Mrays/s
+    accounting."""
+    keys = sampling.key_path(keys)
     n = ray.origin.x.shape[0]
     dev = ray.origin.x.device
     materials = tables["materials"]
@@ -205,10 +208,12 @@ def trace_volumetric(scene, tables, ray: Ray, keys, max_depth: int = 32,
     """Radiance of a wavefront of camera rays in a scene with a
     participating medium (``scene.media[0]`` only, as the reference's TODO
     at renderer.rs:189; `rpt_tpu/integrators/path.py:504`). ``keys`` are the
-    (n, 2) per-lane trace keys. With ``return_stats``, also returns the
-    number of traced ray segments as a 0-dim int64 tensor: per level the
-    live lanes plus one shadow segment per non-ambient light for every
-    medium or surface event."""
+    (n, 2) per-lane trace keys (a tensor or a `sampling.KeyPath`, indexed
+    with the survivors). With ``return_stats``, also returns the number of
+    traced ray segments as a 0-dim int64 tensor: per level the live lanes
+    plus one shadow segment per non-ambient light for every medium or
+    surface event."""
+    keys = sampling.key_path(keys)
     n = ray.origin.x.shape[0]
     dev = ray.origin.x.device
     materials = tables["materials"]

@@ -129,7 +129,7 @@ def _shoot_launch(scene, tables, light_index: int, power_scalar: float, max_dept
     v_cap = 10 * n if medium is not None else 16
     materials = tables["materials"]
 
-    keys = sampling.keys_for(key, n)
+    keys = sampling.key_path(sampling.keys_for(key, n))
     pos, nrm, _ = sample_shape(lstat, tables["lights"][light_index], Vec3.zeros(n, dev),
                                sampling.fold(keys, 1))
     r1, r2 = sampling.uniform2(sampling.fold(keys, 2))
@@ -359,7 +359,7 @@ def volume_estimate_point(scene, tables, pmap: PhotonMapData, medium, ray: Ray, 
     n = ray.origin.x.shape[0]
     dev = ray.origin.x.device
     zero = Vec3.zeros(n, dev)
-    d, d_pdf, d_cdf = medium.sample_d(ray, sampling.fold(keys, 0x7))
+    d, d_pdf, d_cdf = medium.sample_d(ray, sampling.key_path(keys).fold(0x7))
     in_volume = ~hit.valid | (d < hit.time)
 
     collision = where(in_volume, ray.at(d), zero)

@@ -169,9 +169,9 @@ def _sample_sphere_local(target_local: Vec3, keys):
 
 def _sample_cube_local(keys):
     """Uniform face sampling, pdf 1/6 (cube.rs:76-89)."""
-    a = sampling.uniform(sampling.fold(keys, 0xC1)) - 0.5
-    b = sampling.uniform(sampling.fold(keys, 0xC2)) - 0.5
-    face = (sampling.uniform(sampling.fold(keys, 0xC3)) * 6.0).to(torch.int32)
+    a, b, f = sampling.draw(keys, *(sampling.Draw((tag,)) for tag in (0xC1, 0xC2, 0xC3)))
+    a, b = a - 0.5, b - 0.5
+    face = (f * 6.0).to(torch.int32)
     face = torch.clamp(face, 0, 5)
     half = torch.full_like(a, 0.5)
     zero = torch.zeros_like(a)
@@ -205,12 +205,12 @@ def _transformed_sample(tabs, local_v, local_n, local_pdf):
 def _sample_monomial_local(height, keys):
     """Uniform unit-circle sample lifted to the surface, two-sided normal
     flip, pdf 1/(2*AREA) (monomial_surface.rs:109-124)."""
-    r1 = sampling.uniform(sampling.fold(keys, 0x31))
+    r1, u_flip = sampling.draw(keys, sampling.Draw((0x31,)), sampling.Draw((0x32,)))
     x, z = sampling.unit_circle(r1)
     r2 = x * x + z * z
     pos = Vec3(x, height * r2 * r2, z)
     normal = Vec3(height * 4.0 * x * r2, -torch.ones_like(x), height * 4.0 * z * r2).normalize()
-    flip = sampling.uniform(sampling.fold(keys, 0x32)) < 0.5
+    flip = u_flip < 0.5
     normal = where(flip, -normal, normal)
     pdf = torch.full_like(x, 1.0 / (2.0 * MONOMIAL_AREA))
     return pos, normal, pdf
@@ -229,10 +229,8 @@ def sample_shape(static: CompiledLight, tabs, target: Vec3, keys):
     assert static.area_kind == AREA_MESH
     # KdTree::sample: uniform object, pdf / n (kdtree.rs:141-147)
     n = static.n_tris
-    idx = (sampling.uniform(sampling.fold(keys, 0x731)) * n).to(torch.int64)
-    idx = torch.clamp(idx, 0, n - 1)
-    u = sampling.uniform(sampling.fold(keys, 0x732))
-    v = sampling.uniform(sampling.fold(keys, 0x733))
+    u_idx, u, v = sampling.draw(keys, *(sampling.Draw((tag,)) for tag in (0x731, 0x732, 0x733)))
+    idx = torch.clamp((u_idx * n).to(torch.int64), 0, n - 1)
     # fold instead of the reference's rejection loop (mesh.rs:86-91)
     over = u + v > 1.0
     u = torch.where(over, 1.0 - u, u)

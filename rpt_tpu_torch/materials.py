@@ -163,8 +163,7 @@ def sample_f(mat: MaterialLanes, normal: Vec3, wo: Vec3, keys):
     """Sample a bounce direction per lane; returns (wi, pdf, valid) —
     vectorized port of material.rs:166-263 (``valid`` is False on total
     internal reflection)."""
-    r1, r2 = sampling.uniform2(sampling.fold(keys, 0xB5DF))
-    rr = sampling.uniform(sampling.fold(keys, 0xF7E5))
+    r1, r2, rr = sampling.draw(keys, sampling.Draw((0xB5DF,), 2), sampling.Draw((0xF7E5,)))
 
     wi_lam, pdf_lam = sampling.cosine_hemisphere(r1, r2, normal)
 

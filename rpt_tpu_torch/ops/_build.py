@@ -70,6 +70,8 @@ _SIGNATURES = {
     "rpt_threefry_uniform": [_P, _I, _I, _F, _F, _P, _P],
     # keys, n, count, out, stream
     "rpt_threefry_bits": [_P, _I, _I, _P, _P],
+    # params (a DrawParams by reference, launched by value), stream
+    "rpt_threefry_draw": [_P, _P],
 }
 
 

@@ -355,14 +355,16 @@ def camera_rays(scene, camera: Camera, dim: float, xn_np, yn_np, pixel_ids, key,
     their per-lane keys ``fold(fold_in(key, pixel_id), s)`` (the absolute
     sample index): jitter from folds 1 and 2, the lens from fold 3, the
     trace from fold 4 (`rpt_tpu/renderer.py:370-379`). ``dim`` is
-    ``max(width, height)``. Returns ``(ray, keys)``."""
+    ``max(width, height)``. The keys stay a `sampling.KeyPath` (the key
+    and the pixel ids, tag ``s`` pending); the jitter is drawn from it in
+    one launch, the lens in another. Returns ``(ray, keys)``."""
     dev = scene.device
     xn = torch.tensor(xn_np, dtype=DTYPE, device=dev)
     yn = torch.tensor(yn_np, dtype=DTYPE, device=dev)
-    keys = sampling.fold(sampling.fold_in(key, torch.tensor(pixel_ids, device=dev)), s)
-    jx = sampling.uniform(sampling.fold(keys, 1), -1.0 / dim, 1.0 / dim)
-    jy = sampling.uniform(sampling.fold(keys, 2), -1.0 / dim, 1.0 / dim)
-    return camera.cast_ray(xn + jx, yn + jy, sampling.fold(keys, 3)), keys
+    keys = sampling.key_path(key, torch.tensor(pixel_ids, device=dev)).fold(s)
+    jx, jy = sampling.draw(keys, sampling.Draw((1,), 1, -1.0 / dim, 1.0 / dim),
+                           sampling.Draw((2,), 1, -1.0 / dim, 1.0 / dim))
+    return camera.cast_ray(xn + jx, yn + jy, keys.fold(3)), keys
 
 
 def _path_pass(scene, camera: Camera, width: int, height: int, key, s0: int, n_samples: int,

@@ -20,7 +20,15 @@ generator bit for bit in torch, so both packages trace the same rays:
 The generator lives in `ops/threefry.py`: for CPU tensors its plain
 version (int64 torch ops), for CUDA tensors K-rng (`csrc/threefry.cu`),
 one launch a call of ``fold_in``/``fold``/``keys_for``/``random_bits``/
-``uniform``/``uniform2``/``uniform3``.
+``uniform``/``uniform2``/``uniform3`` on a key tensor.
+
+The integrators carry their keys as a `KeyPath`: a key tensor (or one key
+with a per-lane data word, the camera's pixel ids) and the static tags
+still to be folded into it. Folding a tag into a path and indexing it
+launch nothing; ``uniform*`` and `draw` on a path derive the keys and draw
+in one launch (K-rng's draw form), several draws of one site together, so
+a chain ``uniform(fold(fold(keys, b), 3))`` costs one launch instead of
+three, and no key tensor between them is written.
 
 The samplers reproduce the reference's distributions (`material.rs:173-219`,
 `camera.rs:74`, `photon.rs:736-743`).
@@ -33,7 +41,7 @@ import math
 import torch
 
 from .ops import threefry
-from .ops.threefry import M32, bits_to_unit, threefry2x32  # noqa: F401  (the RNG's public names)
+from .ops.threefry import M32, Draw, bits_to_unit, threefry2x32  # noqa: F401  (public names)
 from .vec import Vec3, from_local
 
 TWO_PI = 2.0 * math.pi
@@ -47,6 +55,52 @@ def key(seed: int, device=None) -> torch.Tensor:
     return torch.tensor([(seed >> 32) & M32, seed & M32], dtype=torch.int64, device=device)
 
 
+class KeyPath:
+    """Keys with folds still to come: lane i's key is ``base``'s row i (or
+    the one key (2,)), folded with ``data[i]`` where ``data`` (an integer
+    tensor of the lanes) is given, then with each static tag of ``tags`` in
+    turn. `fold` and indexing launch nothing; `draw` (and ``uniform*``)
+    launches K-rng once; `keys` materialises the keys, in one launch where
+    a fold is pending."""
+
+    __slots__ = ("base", "data", "tags")
+
+    def __init__(self, base: torch.Tensor, data: torch.Tensor | None = None, tags: tuple = ()):
+        self.base, self.data, self.tags = base, data, tags
+
+    def fold(self, tag: int) -> "KeyPath":
+        """The path with the static ``tag`` folded in last (a full chain is
+        materialised first)."""
+        path = self if len(self.tags) < threefry.MAX_TAGS else KeyPath(self.keys())
+        return KeyPath(path.base, path.data, path.tags + (int(tag),))
+
+    def __getitem__(self, index) -> "KeyPath":
+        """The lanes ``index`` selects (a slice, an index tensor, a mask)."""
+        base = self.base if self.base.dim() == 1 else self.base[index]
+        data = None if self.data is None else self.data[index]
+        if base.dim() == 1 and data is None:
+            raise IndexError("a KeyPath of one key has no lanes to index")
+        return KeyPath(base, data, self.tags)
+
+    def keys(self) -> torch.Tensor:
+        """The keys as a tensor (..., 2); the base itself where no fold is
+        pending."""
+        if self.data is None and not self.tags:
+            return self.base
+        return threefry.threefry_draw(self.base, self.data, self.tags, (), key_out=True)[1]
+
+
+def key_path(keys, data: torch.Tensor | None = None) -> KeyPath:
+    """``keys`` (a key tensor (..., 2), or a `KeyPath`, returned as it is)
+    as a `KeyPath`; with ``data``, the per-lane word folded in first
+    (``fold_in(keys, data)``)."""
+    if isinstance(keys, KeyPath):
+        if data is not None:
+            raise ValueError("key_path: a KeyPath takes no data")
+        return keys
+    return KeyPath(keys, data)
+
+
 def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in`` over a key or a batch of keys (..., 2).
     ``data`` is an int or an integer tensor that broadcasts against the
@@ -54,9 +108,20 @@ def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
     return threefry.threefry_fold(keys, data)
 
 
-def fold(keys: torch.Tensor, data) -> torch.Tensor:
-    """Fold a static tag into a batch of keys (purpose separation)."""
+def fold(keys, data):
+    """Fold a static tag into a batch of keys (purpose separation): one
+    launch on a key tensor, none on a `KeyPath` (the fold is pending)."""
+    if isinstance(keys, KeyPath):
+        return keys.fold(data)
     return threefry.threefry_fold(keys, data)
+
+
+def draw(keys, *draws: Draw) -> tuple:
+    """Every `Draw` of ``draws`` (suffix tags, count, lo, hi) from the keys
+    of ``keys`` (a `KeyPath` or a key tensor) in one launch: the floats in
+    order, ``count`` tensors a draw."""
+    path = key_path(keys)
+    return threefry.threefry_draw(path.base, path.data, path.tags, draws)[0]
 
 
 def keys_for(key: torch.Tensor, n: int) -> torch.Tensor:
@@ -71,17 +136,23 @@ def random_bits(keys: torch.Tensor, count: int) -> torch.Tensor:
     return threefry.threefry_bits(keys, count)
 
 
-def uniform(keys: torch.Tensor, lo=0.0, hi=1.0) -> torch.Tensor:
+def uniform(keys, lo=0.0, hi=1.0) -> torch.Tensor:
     """One uniform float per key, in [lo, hi)."""
+    if isinstance(keys, KeyPath):
+        return draw(keys, Draw((), 1, lo, hi))[0]
     return threefry.threefry_uniform(keys, 1, lo, hi)[0]
 
 
-def uniform2(keys: torch.Tensor):
+def uniform2(keys):
     """Two independent uniforms per key."""
+    if isinstance(keys, KeyPath):
+        return draw(keys, Draw((), 2))
     return threefry.threefry_uniform(keys, 2)
 
 
-def uniform3(keys: torch.Tensor):
+def uniform3(keys):
+    if isinstance(keys, KeyPath):
+        return draw(keys, Draw((), 3))
     return threefry.threefry_uniform(keys, 3)
 
 

@@ -461,8 +461,10 @@ def test_threefry_kernels_match_plain_on_card():
     element: fold (one key x wide data, a batch x an int, a batch x a
     batch, (A, B) keys, (A, 1) keys x (B,) data), split, uniform at three
     ranges, uniform2, uniform3 and the raw words, at 1000 lanes (no
-    multiple of a block). Each wrapper launches its kernel once per call;
-    an empty batch launches nothing."""
+    multiple of a block); the draw form (chains of 0-8 tags after an
+    optional data word, 1-8 draws, the key written) against its unfused
+    composition `draw_plain`, at 1000 lanes and at 270,001. Each wrapper launches its kernel once per call; an
+    empty batch launches nothing."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
     from rpt_tpu_torch.ops import threefry as tf
@@ -497,3 +499,32 @@ def test_threefry_kernels_match_plain_on_card():
     before = tf.threefry_fold.launches
     assert tf.threefry_fold(keys[:0], 1).shape == (0, 2)
     assert tf.threefry_fold.launches == before
+
+    # the draw form: each of its call forms
+    D = tf.Draw
+    camera = (D((1,), 1, -1.0 / 600.0, 1.0 / 600.0), D((2,), 1, -1.0 / 600.0, 1.0 / 600.0),
+              D((3, 0xD0F), 2))
+    forms = ((key, data, (7,), camera, False),
+             (keys, None, (4, 1, 3), (D((0xB5DF,), 2), D((0xF7E5,))), False),
+             (keys, None, (), (D(),), False),
+             (grid, None, (2**32 + 3, 5), (D((), 3),), True),
+             (key, data, (7, 4), (), True),
+             (column, data[:20], (9,), (D((1,), 2),), True),
+             (keys, data, tuple(range(tf.MAX_TAGS)),
+              tuple(D((i, i + 1)[:i % 3], 1 + i % 3, -0.25, 0.25) for i in range(tf.MAX_DRAWS)),
+              True))
+    # many blocks, the last one partial
+    wide = torch.tensor(rng.integers(0, 2**32, (270_001, 2)), dtype=torch.int64, device=dev)
+    forms += ((wide, None, (4, 2), (D((0x5A1,), 2), D((0xF7E5,))), True),)
+    for k, d, tags, draws, key_out in forms:
+        floats, out_keys = launched(tf.threefry_draw, k, d, tags, draws, key_out)
+        ref, ref_keys = tf.draw_plain(k, d, tags, draws, key_out)
+        assert len(floats) == len(ref) == sum(x.count for x in draws)
+        for a, b in zip(floats, ref):
+            assert a.is_contiguous() and torch.equal(a.view(torch.int32),
+                                                     b.contiguous().view(torch.int32))
+        assert (out_keys is None) == (not key_out)
+        assert not key_out or torch.equal(out_keys, ref_keys)
+    before = tf.threefry_draw.launches
+    assert tf.threefry_draw(keys[:0], None, (1,), camera)[0][0].shape == (0,)
+    assert tf.threefry_draw.launches == before

@@ -16,7 +16,8 @@ the time the device was busy (the union of its kernels' intervals), that
 share of the wall, the number of kernels launched (and a sample) and the
 kernels that took the most device time, among them K1
 (``closest_hit_kernel``) and K2 (``any_hit_kernel``), and K-rng's
-launches and device time (``threefry_*``) beside the totals. For the pegasus it
+launches and device time (``threefry_*``, the draw form's among them, by
+call form) beside the totals. For the pegasus it
 also prints the share of the sky's lookup (`Hdri.get_color`, which the
 path makes on every lane of every level): its host time against the
 wall, and its kernels' device time against the busy time. Imports

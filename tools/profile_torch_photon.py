@@ -17,8 +17,9 @@ other under
 `torch.profiler`, and prints for each phase its wall time, the time the
 device was busy (the union of its kernels' intervals on the device
 timeline), that share of the wall, the number of kernels launched, and
-the kernels that took the most device time. Imports neither jax nor
-rpt_tpu. The first phase run builds the CUDA kernels if they are not
+the kernels that took the most device time, and K-rng's launches by call
+form (fold, split, uniform, bits and the draw form). Imports neither jax
+nor rpt_tpu. The first phase run builds the CUDA kernels if they are not
 built yet, so the kernels are built before profiling starts.
 """
 
@@ -63,6 +64,15 @@ def _busy_ms(intervals) -> float:
     return busy / 1e3
 
 
+def _rng_form(kernel_name: str) -> str:
+    """K-rng's call form of one of its kernels (`csrc/threefry.cu`): fold,
+    split, uniform, bits or draw."""
+    form = kernel_name.split("threefry_", 1)[1].split("_kernel", 1)[0]
+    if form == "words":
+        return "bits" if "<true>" in kernel_name else "uniform"
+    return form
+
+
 def _kernels_under(event):
     """(kernels, device us) launched under a host event and its children."""
     n, us = len(event.kernels), sum(k.duration for k in event.kernels)
@@ -105,12 +115,17 @@ def _profiled(name, fn, device, annotations=(), samples=None):
           + (f" ({len(kernels) / samples:.0f} a sample)" if samples else ""))
     for kname, (ms, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
         print(f"   {ms:10.1f} ms {count:8d}x  {kname[:90]}")
-    rng = [v for kname, v in by_name.items() if "threefry_" in kname]
-    rng_ms, rng_n = sum(ms for ms, _ in rng), sum(count for _, count in rng)
+    rng = {kname: v for kname, v in by_name.items() if "threefry_" in kname}
+    rng_ms = sum(ms for ms, _ in rng.values())
+    rng_n = sum(count for _, count in rng.values())
+    forms = collections.Counter()
+    for kname, (_, count) in rng.items():
+        forms[_rng_form(kname)] += count
     print(f"   K-rng (threefry_* kernels): {rng_n} launches"
           + (f" ({rng_n / samples:.0f} a sample)" if samples else "")
           + f" of {len(kernels)}, {rng_ms:.1f} ms device ({100.0 * rng_ms / max(busy, 1e-9):.1f}%"
-          f" of the busy time)")
+          f" of the busy time); by form: "
+          + (", ".join(f"{form} {n}" for form, n in sorted(forms.items())) or "none"))
     for label in annotations:
         ranges = [e for e in events if e.name == label
                   and e.device_type == torch.autograd.DeviceType.CPU]
