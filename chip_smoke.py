@@ -76,6 +76,14 @@ per source, in parallel) and drives every ported path end to end:
 - `examples/torch_marbles.py`'s first two frames (800x600, 9 bounces, the
   samples cut by ``--spp``, 16 when left out) with one frame's RK4
   integration of `MarblesSystem` between them, timed on the card;
+- `examples/torch_fractal_spheres.py` at its full size (`[fractal-spheres]`:
+  800x600, 1 spp, 937 spheres and a plane, three lights): every closest
+  hit and shadow query through K-prim (`csrc/prim_hit.cu`), one launch a
+  query, and no per-type prim test on the card; then `[K-prim]`: the
+  kernel against the per-type chain on wavefronts captured from the
+  renders' own passes (the fractal's camera chunk and shadow wavefront, a
+  marbles bounce, a volumetric-lampshade level, the `monomial_glass`
+  camera chunk), with the lanes that are bit-equal;
 - the volumetric path tracer on the lampshade at its example's width
   through `iterative_render`, its 1000 samples cut by ``--vol-spp``;
 - the three media goldens (volumetric path, photon map, beam-beam);
@@ -98,7 +106,11 @@ pegasus's and the teapot's K1/K2 numbers ride as side fields of the
 dragon's K1/K2 entries (``pegasus_*``, ``pegasus_bounce_*``,
 ``pegasus_sun_shadow_*``, ``teapot_*``, with each path's launches), as do
 the launches of the sharded calls (``sharded_launches``) and of the
-drivers (``drivers_launches``). The skybox's volume gather is an entry of
+drivers (``drivers_launches``). K-prim's two entries carry the fractal's
+launches and every path's (``launches_by_path``: every path tests its rays
+against the analytic prims through K-prim, a scene without any included),
+the fractal's camera (closest hit) and shadow (any hit) times, and the
+other wavefronts' times as side fields. The skybox's volume gather is an entry of
 its own (``knn_query_k50_volume``), its surface gather side fields of it.
 
 Every phase prints its lines; any failure raises and exits non-zero. The
@@ -258,13 +270,15 @@ def phase_render(spp_cap):
     launches = {"sphere_sweep": sphere_sweep.launches, "knn_query": knn_query.launches,
                 "knn_radius": knn_radius.launches}
     rng = _read_rng("render", shoots=True)
+    prims = _read_prim("render")
     s, c = r.phase_seconds, r.photon_counts
     finite = bool(np.isfinite(r._last_buffer.raw()).all())
     note = "" if spp == ex.sample else f" (spp lowered from {ex.sample} to {spp})"
     print(f"[render] {r.width_}x{r.height_} {spp} spp{note}, {ex.photons} photons: shoot "
           f"{s['shoot']:.3f} s, build {s['build']:.3f} s, trace {s['trace']:.3f} s; "
           f"surface {c['surface']}, volume {c['volume']}, dropped {c['dropped']}; "
-          f"image mean {img.mean():.4f}, finite {finite}; launches {launches}, K-rng {rng}")
+          f"image mean {img.mean():.4f}, finite {finite}; launches {launches}, K-rng {rng}, "
+          f"K-prim {prims}")
     if not finite or img.shape != (r.height_, r.width_, 3) or img.mean() <= 0:
         raise RuntimeError("render output is not a finite, non-black image of the right shape")
     for name, n in launches.items():
@@ -984,46 +998,55 @@ def phase_dragon():
     launches = {"bvh_closest_hit": bvh_closest_hit.launches,
                 "bvh_any_hit": bvh_any_hit.launches}
     rng = _read_rng("dragon")
+    prims = _read_prim("dragon")
     segs = r.ray_counter.segments
     raw = r._last_buffer.raw()
     finite = bool(np.isfinite(raw).all())
     print(f"[dragon] {r.width_}x{r.height_} {r.num_samples_} spp {r.max_bounces_} bounces: "
           f"wall {wall:.3f} s (warm-up sample {warm:.3f} s), {segs} ray segments, "
           f"{segs / wall / 1e6:.3f} Mrays/s; image mean {img.mean():.4f} (radiance "
-          f"{raw.mean():.5f}), finite {finite}; launches {launches}, K-rng {rng}")
+          f"{raw.mean():.5f}), finite {finite}; launches {launches}, K-rng {rng}, K-prim "
+          f"{prims} (the plane)")
     if not finite or img.shape != (r.height_, r.width_, 3) or img.mean() <= 0:
         raise RuntimeError("dragon render is not a finite, non-black image of the right shape")
-    for name, n in launches.items():
+    for name, n in {**launches, **prims}.items():
         if n <= 0:
             raise RuntimeError(f"the dragon render never launched {name}")
     return r, launches
 
 
-def _capture_wavefronts(r):
-    """Sample 0 of the dragon, traced once more with the traversal
-    wrappers recording their arguments: the calls of K1 (camera, then
-    bounce levels) and of K2 (batched shadows per level), in order."""
+def _capture_calls(r, attr: str, names) -> dict:
+    """Sample 0 of a path-traced render, traced once more with the wrappers
+    ``names`` that `rpt_tpu_torch.intersect` calls through its module
+    ``attr`` recording their arguments: ``{name: [(args, kwargs), ...]}``,
+    in call order (a chunk's levels, then the next chunk's)."""
     from types import SimpleNamespace
 
     from rpt_tpu_torch import intersect, sampling
     from rpt_tpu_torch.renderer import _path_pass
 
-    kernels = intersect.kernels
-    calls = {"bvh_closest_hit": [], "bvh_any_hit": []}
+    wrappers = getattr(intersect, attr)
+    calls = {name: [] for name in names}
 
     def recorder(name):
         def run(*args, **kwargs):
             calls[name].append((args, kwargs))
-            return getattr(kernels, name)(*args, **kwargs)
+            return getattr(wrappers, name)(*args, **kwargs)
         return run
 
-    intersect.kernels = SimpleNamespace(**{name: recorder(name) for name in calls})
+    setattr(intersect, attr, SimpleNamespace(**{name: recorder(name) for name in names}))
     try:
-        _path_pass(r.compiled, r.camera, r.width_, r.height_,
-                   sampling.key(r.seed_, r.device), 0, 1, r.max_bounces_)
+        _path_pass(r.compiled, r.camera, r.width_, r.height_, sampling.key(r.seed_, r.device),
+                   0, 1, r.max_bounces_, r.media_max_depth_)
     finally:
-        intersect.kernels = kernels
+        setattr(intersect, attr, wrappers)
     return calls
+
+
+def _capture_wavefronts(r):
+    """The calls of K1 (camera, then bounce levels) and of K2 (batched
+    shadows per level) in sample 0 of the dragon, in order."""
+    return _capture_calls(r, "kernels", ("bvh_closest_hit", "bvh_any_hit"))
 
 
 def _events_ms(fn):
@@ -1219,20 +1242,43 @@ def _sample0(r):
 
 def _zero_counts():
     from rpt_tpu_torch.accel.knn import knn_query, knn_radius
+    from rpt_tpu_torch.ops import prim_hit, threefry
     from rpt_tpu_torch.ops.bvh_traverse import bvh_any_hit, bvh_closest_hit
     from rpt_tpu_torch.ops.sphere_sweep import sphere_sweep
 
-    from rpt_tpu_torch.ops import threefry
-
     for wrapper in (knn_query, knn_radius, sphere_sweep, bvh_closest_hit, bvh_any_hit,
-                    *(getattr(threefry, name) for name in RNG_WRAPPERS)):
+                    *(getattr(threefry, name) for name in RNG_WRAPPERS),
+                    *(getattr(prim_hit, name) for name in K_PRIM)):
         wrapper.launches = 0
     knn_query.by_k.clear()
 
 
+# K-prim's entry points, and their launches on every path the smoke drives,
+# by path (`_read_prim`)
+K_PRIM = ("prim_closest_hit", "prim_any_hit")
+PRIM_LAUNCHES: dict = {}
+
+
+def _read_prim(path: str) -> dict:
+    """Record K-prim's launches of ``path`` since `_zero_counts` (adding to
+    what an earlier run of the same path recorded) and fail where the path
+    made no closest-hit query through K-prim: every path tests its rays
+    against the analytic prims first (none in a scene without any)."""
+    from rpt_tpu_torch.ops import prim_hit
+
+    counts = {name: getattr(prim_hit, name).launches for name in K_PRIM}
+    if counts["prim_closest_hit"] <= 0:
+        raise RuntimeError(f"the {path} path never launched prim_closest_hit: {counts}")
+    seen = PRIM_LAUNCHES.setdefault(path, dict.fromkeys(K_PRIM, 0))
+    for name, n in counts.items():
+        seen[name] += n
+    return counts
+
+
 def _read_counts(path: str, shoots: bool = False) -> dict:
-    """The launches of K-knn, K-sweep, K1 and K2 since `_zero_counts`;
-    K-rng's are recorded for ``path`` by `_read_rng`."""
+    """The launches of K-knn, K-sweep, K1, K2 and K-prim since
+    `_zero_counts`; K-rng's are recorded for ``path`` by `_read_rng`,
+    K-prim's also by `_read_prim`."""
     from rpt_tpu_torch.accel.knn import knn_query, knn_radius
     from rpt_tpu_torch.ops.bvh_traverse import bvh_any_hit, bvh_closest_hit
     from rpt_tpu_torch.ops.sphere_sweep import sphere_sweep
@@ -1240,7 +1286,14 @@ def _read_counts(path: str, shoots: bool = False) -> dict:
     _read_rng(path, shoots)
     return {"knn_query": knn_query.launches, "knn_query_by_k": dict(knn_query.by_k),
             "knn_radius": knn_radius.launches, "sphere_sweep": sphere_sweep.launches,
-            "bvh_closest_hit": bvh_closest_hit.launches, "bvh_any_hit": bvh_any_hit.launches}
+            "bvh_closest_hit": bvh_closest_hit.launches, "bvh_any_hit": bvh_any_hit.launches,
+            **_read_prim(path)}
+
+
+def _other_launches(launches: dict, allowed=()) -> dict:
+    """The launches of ``launches`` by kernels other than K-prim and
+    ``allowed`` that were made."""
+    return {name: n for name, n in launches.items() if n and name not in (*K_PRIM, *allowed)}
 
 
 def _check_image(label, r, img):
@@ -1447,7 +1500,7 @@ def phase_photonmap_default(spp_cap):
     want = {r.gather_size_: wavefronts}
     if launches["knn_query_by_k"] != want or launches["knn_query"] != wavefronts:
         raise RuntimeError(f"K-knn launched {launches['knn_query_by_k']}, not {want}")
-    if any(n for name, n in launches.items() if name not in ("knn_query", "knn_query_by_k")):
+    if _other_launches(launches, ("knn_query", "knn_query_by_k")):
         raise RuntimeError(f"the photon_map.py render launched another kernel: {launches}")
 
     surface = _capture_gathers(r)[("surface", r.gather_size_)]
@@ -1516,7 +1569,7 @@ def phase_skybox_photons(spp_cap):
     if launches["knn_query_by_k"] != {50: 2 * wavefronts} or launches["knn_query"] != 2 * wavefronts:
         raise RuntimeError(f"K-knn launched {launches['knn_query_by_k']}, not {2 * wavefronts} "
                            "gathers at k=50")
-    if any(n for name, n in launches.items() if name not in ("knn_query", "knn_query_by_k")):
+    if _other_launches(launches, ("knn_query", "knn_query_by_k")):
         raise RuntimeError(f"the skybox photon map launched another kernel: {launches}")
 
     gathers = _capture_gathers(r)
@@ -1693,7 +1746,7 @@ def phase_drivers():
               f"{r.max_bounces_} bounces{' (a medium)' if r.compiled.media else ''}, "
               f"{r.compiled.n_tris} triangles: {wall:.3f} s, image mean {img.mean():.4f}, "
               f"finite and non-black {finite}; launches {launches}")
-        for key in ("bvh_closest_hit", "bvh_any_hit"):
+        for key in ("bvh_closest_hit", "bvh_any_hit", *K_PRIM):
             total[key] = total.get(key, 0) + launches[key]
     return total
 
@@ -1828,7 +1881,8 @@ def phase_volpath(spp: int):
     """The volumetric path tracer at its example's width through
     `iterative_render`, its 1000 samples cut to ``spp``; one untimed
     warm-up sample first. The lampshade's 12 triangles take the dense
-    test, so the path launches no hand-written kernel but K-rng."""
+    test, so the path launches no hand-written kernel but K-rng and, for
+    its six cubes, K-prim."""
     import torch_volumetric_pathtrace_lampshade as ex
     from rpt_tpu_torch import Buffer
     from rpt_tpu_torch.renderer import RayCounter
@@ -1856,9 +1910,9 @@ def phase_volpath(spp: int):
         raise RuntimeError("volumetric render is not a finite, non-black image of the right shape")
     if not calls or calls[-1] != spp or segs <= spp * r.width_ * r.height_:
         raise RuntimeError("iterative_render did not trace every sample")
-    if any(v for v in launches.values()):
-        raise RuntimeError(f"the lampshade's volumetric path launched K1/K2, K-knn or K-sweep: "
-                           f"{launches}")
+    if _other_launches(launches) or launches["prim_any_hit"] <= 0:
+        raise RuntimeError(f"the lampshade's volumetric path launched K1/K2, K-knn or K-sweep, "
+                           f"or no K-prim shadow query: {launches}")
 
 
 def _golden(name):
@@ -2073,7 +2127,8 @@ def phase_marbles(spp_cap):
     example's 2000 would take minutes a frame); between the frames one
     frame's RK4 integration of `MarblesSystem` on the card (625 steps of
     1e-4 s and the remainder), timed. No mesh of the scene has more than
-    two triangles, so the path launches no hand-written kernel but K-rng."""
+    two triangles, so the path launches no hand-written kernel but K-rng and
+    K-prim (its 25 spheres and the monomial glass)."""
     import _torch_assets
     import torch_marbles as ex
     from rpt_tpu_torch import MarblesSystem
@@ -2106,8 +2161,226 @@ def phase_marbles(spp_cap):
               f"launches {launches}")
         if not bool(state.pos.isfinite().all()) or moved <= 0:
             raise RuntimeError("the marbles' RK4 state is not finite or did not move")
-        if any(v for v in launches.values()):
+        if _other_launches(launches):
             raise RuntimeError(f"the marbles' path launched K1/K2, K-knn or K-sweep: {launches}")
+
+
+# K-prim against its plain version (the per-type chain of torch ops on the
+# card): hit or miss and material equal on >= 99.99% of lanes (K1's
+# criterion: a float32 grazing hit may flip a lane), and where they agree
+# the time within rtol 1e-6 and the normal within atol 1e-6; the any-hit
+# flags equal on >= 99.99% of lanes.
+PRIM_AGREEMENT = 0.9999
+PRIM_RTOL, PRIM_ATOL = 1e-6, 1e-6
+# K-prim's float32 operations, counted from `csrc/prim_hit.cu` (a division,
+# a square root or a reciprocal as one): a sphere pair (the inverse
+# transform 33, the quadratic 16, its roots and tests 11), a cube pair (the
+# transform, three slabs of 7, the faces' choice and tests 17), a plane pair
+# (two dot products 11, the on-plane guard 14, the tests 6), a monomial's
+# box test (the transform, three coefficients 12, three slabs of 8, the
+# feasibility test 10) and, for a pair inside its box before the best, its
+# search: 60 bisection steps of a distance (12) and a midpoint (2), the
+# Newton steps (at most 10 of ~50) left out.
+SPHERE_OPS, CUBE_OPS, PLANE_OPS, MONO_BOX_OPS, MONO_SEARCH_OPS = 60, 71, 31, 79, 840
+RAY_BYTES, HIT_BYTES = 24, 20  # six float32 in; time, normal, material out
+
+
+def _prim_bound(prims, ray, t_min, out_bytes: int, scan=None, extra_ops: float = 0.0):
+    """K-prim's bound on one wavefront: the rays in, ``out_bytes`` (the
+    outputs and the any-hit limits) and the rows once; the pair tests of
+    every lane that must test every prim (those in ``scan``, else all), the
+    monomials' searches that this data needs and ``extra_ops``."""
+    from rpt_tpu_torch.ops.prim_hit import monomial_searches
+
+    n = ray.origin.x.numel()
+    c = prims.counts
+    per_lane = c[0] * SPHERE_OPS + c[1] * CUBE_OPS + c[2] * PLANE_OPS + c[3] * MONO_BOX_OPS
+    lanes = n if scan is None else int(scan.sum())
+    ops = (lanes * per_lane + monomial_searches(prims, ray, t_min, scan) * MONO_SEARCH_OPS
+           + extra_ops)
+    return _bound(n * RAY_BYTES + out_bytes + _nbytes(prims.rows), ops)
+
+
+def _bit_equal(a, b):
+    return a.contiguous().view(torch.int32) == b.contiguous().view(torch.int32)
+
+
+def _prim_case(label, prims, ray, t_min):
+    """K-prim's closest hit against the per-type chain on one captured
+    wavefront: ``(numbers, share, ok)``: the lanes whose hit or miss and
+    material agree, and whether time and normal agree where they do."""
+    from rpt_tpu_torch.ops.prim_hit import prim_closest_hit, prim_closest_hit_plain
+
+    got = prim_closest_hit(prims, ray, t_min)
+    ref, plain_ms = _events_ms(lambda: prim_closest_hit_plain(prims, ray, t_min))
+    ms = _time_ms(lambda: prim_closest_hit(prims, ray, t_min), 5)
+    hit = torch.isfinite(ref.time)
+    same = (torch.isfinite(got.time) == hit) & (got.material == ref.material)
+    share = float(same.float().mean())
+    both = same & hit
+    t_err = float((got.time - ref.time)[both].abs().max()) if bool(both.any()) else 0.0
+    n_diff = (got.normal.to_array() - ref.normal.to_array())[both].abs()
+    n_err = float(n_diff.max()) if bool(both.any()) else 0.0
+    t_ok = bool(torch.isclose(got.time[both], ref.time[both], rtol=PRIM_RTOL, atol=0.0).all())
+    n_ok = n_err <= PRIM_ATOL
+    t_bits = _bit_equal(got.time, ref.time)
+    n_bits = (_bit_equal(got.normal.x, ref.normal.x) & _bit_equal(got.normal.y, ref.normal.y)
+              & _bit_equal(got.normal.z, ref.normal.z))
+    bits = t_bits & n_bits & (got.material == ref.material)
+    n = got.time.numel()
+    bound_ms, bound_by = _prim_bound(prims, ray, t_min, n * HIT_BYTES)
+    print(f"[K-prim] {label}: {n} lanes x {prims.n} prims {prims.counts} "
+          f"({float(hit.float().mean()):.4f} hit): hit and material equal on {share:.6f} "
+          f"({int((~same).sum())} lanes differ); "
+          f"where equal max abs err t {t_err:.3e}, normal {n_err:.3e}, t ok {t_ok}, normal ok "
+          f"{n_ok}; bit-equal lanes {int(bits.sum())} of {n} (time differs on "
+          f"{int((~t_bits).sum())}, normal on {int((~n_bits).sum())}); kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+    numbers = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+               "max_abs_err": max(t_err, n_err), "bit_equal_lanes": int(bits.sum()), "lanes": n}
+    return numbers, share, t_ok and n_ok
+
+
+def _prim_any_case(label, prims, ray, t_min, limit):
+    """K-prim's any hit against the per-type chain's ``time < limit`` on one
+    captured shadow wavefront: ``(numbers, share)``."""
+    from rpt_tpu_torch.ops.prim_hit import prim_any_hit, prim_any_hit_plain
+
+    got = prim_any_hit(prims, ray, t_min, limit)
+    ref, plain_ms = _events_ms(lambda: prim_any_hit_plain(prims, ray, t_min, limit))
+    ms = _time_ms(lambda: prim_any_hit(prims, ray, t_min, limit), 5)
+    share = float((got == ref).float().mean())
+    live = (torch.as_tensor(limit) > t_min).expand_as(ref)
+    n = got.numel()
+    # an unoccluded live lane must test every prim; an occluded one at
+    # least one
+    bound_ms, bound_by = _prim_bound(prims, ray, t_min, n * 5, live & ~ref,
+                                     int((live & ref).sum()) * SPHERE_OPS)
+    print(f"[K-prim] {label}: {n} lanes x {prims.n} prims ({int((~live).sum())} gated off: "
+          f"limit <= t_min; {float(ref.float().mean()):.4f} occluded): flag equal on "
+          f"{share:.6f} ({int((got != ref).sum())} lanes differ); kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+    numbers = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+               "max_abs_err": float((got.float() - ref.float()).abs().max()), "lanes": n}
+    return numbers, share
+
+
+def phase_fractal(smi: str):
+    """`examples/torch_fractal_spheres.py` at its example's parameters,
+    uncut: 800x600, 1 spp, no bounce, 937 spheres in five groups and a
+    plane under ambient, directional and point lights; the counts zeroed
+    just before ``render()`` and read just after. Each chunk's camera rays
+    take one K-prim closest-hit launch and its two lights' shadow rays one
+    any-hit launch; the per-type chain (`intersect_spheres` and its
+    siblings) must not run."""
+    import torch_fractal_spheres as ex
+    from rpt_tpu_torch import intersect
+
+    r = ex.renderer("cuda")
+    compiled = r.compiled
+    counts = compiled.prim_rows.counts
+    if counts != (937, 0, 1, 0) or compiled.n_tris:
+        raise RuntimeError(f"the fractal compiled to {counts} prims, {compiled.n_tris} triangles")
+    per_type = ("intersect_spheres", "intersect_cubes", "intersect_planes", "intersect_monomials")
+    saved = {name: getattr(intersect, name) for name in per_type}
+    plain_calls = dict.fromkeys(per_type, 0)
+
+    def counted(name):
+        def run(*args, **kwargs):
+            plain_calls[name] += 1
+            return saved[name](*args, **kwargs)
+        return run
+
+    for name in per_type:
+        setattr(intersect, name, counted(name))
+    try:
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = r.render()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for name, fn in saved.items():
+            setattr(intersect, name, fn)
+    launches = _read_counts("fractal-spheres")
+    finite = _check_image("[fractal-spheres]", r, img)
+    segs = r.ray_counter.segments
+    chunks = -(-r.width_ * r.height_ // (1 << 18))
+    print(f"[fractal-spheres] {r.width_}x{r.height_} {r.num_samples_} spp {r.max_bounces_} "
+          f"bounces, {sum(counts)} prims (spheres, cubes, planes, monomials = {counts}), "
+          f"{len(compiled.lights)} lights, {chunks} chunks: wall {wall:.3f} s on {smi}, {segs} "
+          f"ray segments, {segs / wall / 1e6:.3f} Mrays/s; image mean {img.mean():.4f} "
+          f"(radiance {r._last_buffer.raw().mean():.5f}), finite and non-black {finite}; "
+          f"launches {launches}; per-type prim calls {plain_calls}")
+    if launches["prim_any_hit"] <= 0 or any(plain_calls.values()) or _other_launches(launches):
+        raise RuntimeError(f"the fractal did not go through K-prim alone: launches {launches}, "
+                           f"per-type calls {plain_calls}")
+    return r
+
+
+def phase_prim(r_fractal):
+    """K-prim against its plain version on the card, on wavefronts captured
+    from the renders' own passes (sample 0): the fractal's camera chunk
+    (262,144 lanes x 938 prims) and its shadow wavefront, a marbles bounce
+    (25 spheres and the monomial glass, level 1 of the first chunk), a
+    volumetric lampshade level (its six cubes) and the `monomial_glass`
+    camera chunk (every prim type), each to `PRIM_AGREEMENT`,
+    `PRIM_RTOL` and `PRIM_ATOL`, with its bit-equal lanes, times and
+    bound. First, on the card: torch's ``x ** 2`` against ``x * x`` (the
+    kernel squares where the plain version calls pow). Returns the two
+    entries of the kernel report."""
+    import _torch_assets
+    import torch_marbles
+    import torch_monomial_glass
+    import torch_volumetric_pathtrace_lampshade as lampshade
+
+    x = torch.randn(1 << 20, device="cuda") * 100.0
+    square = bool(_bit_equal(x ** 2, x * x).all())
+    print(f"[K-prim] torch's x ** 2 rounds as x * x on the card: {square}")
+
+    renders = {"fractal": r_fractal}
+    state = torch_marbles.initial_state("cuda")
+    renders["marbles"] = torch_marbles.renderer(
+        "cuda", torch_marbles.marble_positions(state), _torch_assets.get_hdri("ballroom_8k"),
+        sample=1)
+    renders["lampshade"] = lampshade.renderer("cuda", sample=1, seed=0)
+    renders["monomial_glass"] = torch_monomial_glass.renderer("cuda")
+    calls = {name: _capture_calls(r, "prim_hit", K_PRIM) for name, r in renders.items()}
+    closest_cases = (("fractal camera chunk", "fractal", 0), ("marbles level-1 bounce",
+                                                              "marbles", 1),
+                     ("volumetric lampshade level 0", "lampshade", 0),
+                     ("monomial_glass camera chunk", "monomial_glass", 0))
+    worst, ok, numbers = 1.0, True, {}
+    for label, name, index in closest_cases:
+        (prims, ray, t_min), _ = calls[name]["prim_closest_hit"][index]
+        numbers[label], share, good = _prim_case(label, prims, ray, t_min)
+        worst, ok = min(worst, share), ok and good
+    (prims, ray, t_min, limit), _ = calls["fractal"]["prim_any_hit"][0]
+    shadow, share = _prim_any_case("fractal shadow wavefront (chunk 0, two lights)", prims, ray,
+                                   t_min, limit)
+    worst = min(worst, share)
+    if worst < PRIM_AGREEMENT or not ok:
+        raise RuntimeError(f"K-prim agrees with its plain version on {worst:.6f} of lanes "
+                           f"(< {PRIM_AGREEMENT}), or its time or normal differ where it agrees")
+
+    camera = numbers["fractal camera chunk"]
+    closest = {"name": "prim_closest_hit", "route": "cuda",
+               "source": "rpt_tpu_torch/csrc/prim_hit.cu", "replaces": "rpt_tpu/intersect.py:832",
+               "max_abs_err": max(v["max_abs_err"] for v in numbers.values()),
+               **{k: camera[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+               "library_ms": None, "bit_equal_lanes": camera["bit_equal_lanes"],
+               "lanes": camera["lanes"]}
+    for label, prefix in (("marbles level-1 bounce", "marbles_bounce"),
+                          ("volumetric lampshade level 0", "lampshade_level"),
+                          ("monomial_glass camera chunk", "monomial_glass")):
+        closest.update(_side(prefix, numbers[label]),
+                       **{f"{prefix}_bit_equal_lanes": numbers[label]["bit_equal_lanes"]})
+    anyhit = {"name": "prim_any_hit", "route": "cuda", "source": "rpt_tpu_torch/csrc/prim_hit.cu",
+              "replaces": "rpt_tpu/intersect.py:846", "max_abs_err": shadow["max_abs_err"],
+              **{k: shadow[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+              "library_ms": None, "lanes": shadow["lanes"]}
+    return [closest, anyhit]
 
 
 def main():
@@ -2164,6 +2437,7 @@ def main():
                        (k2, (pegasus["shadow"], teapot_k2))):
         k["max_abs_err"] = max(k["max_abs_err"], *(n["max_abs_err"] for n in numbers))
     phase_marbles(args.spp)
+    prim = phase_prim(phase_fractal(smi))
     lampshade, lampshade_by_k = phase_photonmap(args.spp)
     default, default_by_k = phase_photonmap_default(args.spp)
     # one entry a main path's gather, its launches that path's at its k;
@@ -2189,7 +2463,14 @@ def main():
     k1["drivers_launches"], k2["drivers_launches"] = (drivers["bvh_closest_hit"],
                                                       drivers["bvh_any_hit"])
     kernels += _rng_entries(rng)
+    # K-prim's launches: the fractal's, the path it was brought up for, and
+    # every path's beside them
+    for k in prim:
+        by_path = {path: counts[k["name"]] for path, counts in PRIM_LAUNCHES.items()}
+        k.update(launches=by_path["fractal-spheres"], launches_by_path=by_path)
+    kernels += prim
     print(f"[K-rng] launches by path: {RNG_LAUNCHES}")
+    print(f"[K-prim] launches by path: {PRIM_LAUNCHES}")
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -2,10 +2,13 @@
 `rpt_tpu/intersect.py` (`rpt/src/shape/*.rs`).
 
 Every function takes a batch of N rays and tests it against one primitive
-batch (analytic prims, looped per prim — scenes have few) or the scene's
-triangles. Scene-level closest hit is the reference's deliberate linear
-scan over objects (`renderer.rs:411-425`), here a masked min over the
-per-type batches.
+batch (analytic prims, looped per prim) or the scene's triangles.
+Scene-level closest hit is the reference's deliberate linear scan over
+objects (`renderer.rs:411-425`), here a masked min over the per-type
+batches. The analytic prims go through the wrappers of
+`rpt_tpu_torch.ops.prim_hit`: the hand-written kernel K-prim (one launch
+a query over every prim of the scene) on a CUDA tensor, and the per-type
+intersectors below, its spec, on a CPU tensor.
 
 Triangles: meshes of at most ``DENSE_TRI_ROWS`` packed leaf rows are
 tested densely (every row broadcast against the wavefront), as the JAX
@@ -24,6 +27,7 @@ import torch
 
 from .dtypes import DTYPE, EPS, INF
 from .ops import bvh_traverse as kernels
+from .ops import prim_hit
 from .ray import Hit, Ray, closer
 from .vec import Affine, Mat3, Vec3, where
 
@@ -545,17 +549,10 @@ def bvh_any_hit(bvh: BVHTables, ray: Ray, t_min, limit, skip=None) -> torch.Tens
 
 
 def _prim_best(scene, tables, ray: Ray, t_min) -> Hit:
-    """Masked-min closest hit over the analytic primitive batches."""
-    best = Hit.none(ray.origin.x.shape, ray.origin.x.device)
-    if scene.n_spheres:
-        best = intersect_spheres(tables["spheres"], ray, t_min, best)
-    if scene.n_cubes:
-        best = intersect_cubes(tables["cubes"], ray, t_min, best)
-    if scene.n_planes:
-        best = intersect_planes(tables["planes"], ray, t_min, best)
-    if scene.n_monomials:
-        best = intersect_monomials(tables["monomials"], ray, t_min, best)
-    return best
+    """Closest hit over the analytic primitive batches: K-prim on a CUDA
+    tensor, one launch; the per-type chain on a CPU tensor
+    (`ops/prim_hit.py`)."""
+    return prim_hit.prim_closest_hit(scene.prim_rows, ray, t_min)
 
 
 def closest_hit(scene, tables, ray: Ray, t_min=None) -> Hit:
@@ -571,10 +568,11 @@ def closest_hit(scene, tables, ray: Ray, t_min=None) -> Hit:
 
 def prim_occluded(scene, tables, ray: Ray, limit, t_min=None) -> torch.Tensor:
     """Occlusion by the analytic primitives only; the mesh is not tested
-    (`rpt_tpu/intersect.py:846`)."""
+    (`rpt_tpu/intersect.py:846`): ``_prim_best(...).time < limit``, K-prim's
+    any-hit entry on a CUDA tensor."""
     if t_min is None:
         t_min = scene.t_min
-    return _prim_best(scene, tables, ray, t_min).time < limit
+    return prim_hit.prim_any_hit(scene.prim_rows, ray, t_min, limit)
 
 
 def occluded(scene, tables, ray: Ray, limit, t_min=None) -> torch.Tensor:

@@ -72,6 +72,9 @@ _SIGNATURES = {
     "rpt_threefry_bits": [_P, _I, _I, _P, _P],
     # params (a DrawParams by reference, launched by value), stream
     "rpt_threefry_draw": [_P, _P],
+    # params (a PrimParams by reference, launched by value), stream
+    "rpt_prim_closest_hit": [_P, _P],
+    "rpt_prim_any_hit": [_P, _P],
 }
 
 

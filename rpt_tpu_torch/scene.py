@@ -31,6 +31,7 @@ from .lights import (
 )
 from .materials import Material, MaterialTable
 from .medium import Medium
+from .ops.prim_hit import PrimRows, pack_prims
 from .shapes import (
     Cube,
     Mesh,
@@ -113,6 +114,8 @@ class CompiledScene:
     tables: dict = field(compare=False, repr=False, default=None)
     # host seconds of the mesh's SAH build ("sah") and table packing ("pack")
     build_seconds: dict = field(compare=False, repr=False, default_factory=dict)
+    # the analytic prims packed for K-prim (`ops.prim_hit.pack_prims`)
+    prim_rows: PrimRows = field(compare=False, repr=False, default=None)
 
     def env_color(self, tables, direction) -> Vec3:
         return self.environment.get_color(tables["env"], direction)
@@ -262,6 +265,7 @@ def compile_scene(scene: Scene, device="cuda") -> CompiledScene:
         device=device,
         tables=tables,
         build_seconds=build_seconds,
+        prim_rows=pack_prims(tables, device),
     )
 
 

@@ -1,6 +1,6 @@
 """The port's kernel wrappers without JAX: the device grid build and the
-self-query's unit cut, input checks, and K-sweep, K-knn, K1 and K2 against
-their plain versions on the card.
+self-query's unit cut, input checks, and K-sweep, K-knn, K1, K2, K-rng and
+K-prim against their plain versions on the card.
 
 This file imports neither jax nor rpt_tpu, so it also runs on a GPU
 machine without JAX (`tests/conftest.py` imports jax, hence
@@ -528,3 +528,91 @@ def test_threefry_kernels_match_plain_on_card():
     before = tf.threefry_draw.launches
     assert tf.threefry_draw(keys[:0], None, (1,), camera)[0][0].shape == (0,)
     assert tf.threefry_draw.launches == before
+
+
+def _prim_scene(name):
+    """A scene for K-prim on the card: the fractal's 937 spheres and wall,
+    `monomial_glass` (every prim type), or 40 random rotated cubes."""
+    import math
+    import os
+    import sys
+
+    import rpt_tpu_torch as rpt
+
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "examples"))
+    if name == "fractal":
+        import torch_fractal_spheres
+
+        return torch_fractal_spheres.build_scene().compile("cuda")
+    if name == "monomial":
+        import torch_monomial_glass
+
+        return torch_monomial_glass.build_scene().compile("cuda")
+    rng = np.random.default_rng(5)
+    scene = rpt.Scene()
+    for k in range(40):
+        scene.add(rpt.Object(rpt.cube().rotate_y(rng.uniform(0, math.pi))
+                             .scale(tuple(rng.uniform(0.1, 0.6, 3)))
+                             .translate(tuple(rng.uniform(-2, 2, 3)))).material(
+            rpt.Material.diffuse(rpt.hex_color(0x010101 * (k + 1)))))
+    return scene.compile("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, n", [("fractal", 5003), ("monomial", 5003), ("cubes", 5003),
+                                     ("fractal", 270_001)])
+def test_prim_kernels_match_plain_on_card(name, n):
+    """K-prim's two entries against the per-type chain on the card, on rays
+    from a shell around the scene toward it and, for half of them, from
+    their first hits in random directions (n lanes, no multiple of a
+    block): hit or miss and material equal on >= 99.99% of lanes, time
+    within rtol 1e-6 and normals within atol 1e-6 where they agree; the
+    any-hit flags (limits in [-1, 10), -1 on a tenth of the lanes) equal on
+    >= 99.99% of lanes and False where limit <= t_min. One launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    from rpt_tpu_torch.intersect import closest_hit
+    from rpt_tpu_torch.ops import prim_hit as ph
+    from rpt_tpu_torch.ray import Ray
+    from rpt_tpu_torch.vec import Vec3
+
+    scene = _prim_scene(name)
+    prims, dev = scene.prim_rows, "cuda"
+    rng = np.random.default_rng(n)
+    o = rng.normal(size=(n, 3))
+    o = 8.0 * o / np.linalg.norm(o, axis=1, keepdims=True)
+    d = rng.uniform(-2, 2, (n, 3)) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    ray = Ray(Vec3.from_array(o, dev), Vec3.from_array(d, dev))
+    first = closest_hit(scene, scene.tables, ray)
+    t = torch.where(first.valid, first.time, 1.0)
+    bounce = rng.normal(size=(n, 3))
+    bounce = torch.tensor(bounce / np.linalg.norm(bounce, axis=1, keepdims=True),
+                          dtype=torch.float32, device=dev)
+    half = torch.arange(n, device=dev) % 2 == 1
+    o2 = torch.where(half[:, None], ray.at(t).to_array(), ray.origin.to_array())
+    d2 = torch.where(half[:, None], bounce, ray.dir.to_array())
+    ray = Ray(Vec3.from_array(o2), Vec3.from_array(d2))
+
+    before = ph.prim_closest_hit.launches
+    got = ph.prim_closest_hit(prims, ray, scene.t_min)
+    assert ph.prim_closest_hit.launches == before + 1
+    ref = ph.prim_closest_hit_plain(prims, ray, scene.t_min)
+    same = (torch.isfinite(got.time) == torch.isfinite(ref.time)) & (got.material == ref.material)
+    assert float(same.float().mean()) >= 0.9999
+    hit = same & torch.isfinite(ref.time)
+    assert 0.2 < float(hit.float().mean()) < 1.0
+    torch.testing.assert_close(got.time[hit], ref.time[hit], rtol=1e-6, atol=0.0)
+    torch.testing.assert_close(got.normal.to_array()[hit], ref.normal.to_array()[hit],
+                               rtol=0.0, atol=1e-6)
+    assert bool((got.material[~torch.isfinite(got.time)] == -1).all())
+
+    limit = torch.tensor(np.where(rng.random(n) < 0.1, -1.0, rng.uniform(0, 10, n)),
+                         dtype=torch.float32, device=dev)
+    before = ph.prim_any_hit.launches
+    occ = ph.prim_any_hit(prims, ray, scene.t_min, limit)
+    assert ph.prim_any_hit.launches == before + 1
+    occ_ref = ph.prim_any_hit_plain(prims, ray, scene.t_min, limit)
+    assert 0.05 < float(occ_ref.float().mean()) < 0.95
+    assert float((occ == occ_ref).float().mean()) >= 0.9999
+    assert not bool(occ[limit <= scene.t_min].any())

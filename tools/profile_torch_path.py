@@ -10,14 +10,17 @@ of `examples/torch_volumetric_pathtrace_lampshade.py` (the media branch,
 `examples/torch_pegasus.py` (the loaded 100,138-triangle pegasus in ice
 under the sky, 8 bounces, 1200^2), or with ``--scene marbles`` of the
 first frame of `examples/torch_marbles.py` (25 spheres and a monomial
-glass, 9 bounces, 800x600), traces one untimed warm-up sample,
+glass, 9 bounces, 800x600), or with ``--scene fractal_spheres`` of
+`examples/torch_fractal_spheres.py` (937 spheres and a plane, no bounce,
+800x600), traces one untimed warm-up sample,
 then ``--spp`` samples under `torch.profiler`, and prints the wall time,
 the time the device was busy (the union of its kernels' intervals), that
 share of the wall, the number of kernels launched (and a sample) and the
 kernels that took the most device time, among them K1
 (``closest_hit_kernel``) and K2 (``any_hit_kernel``), and K-rng's
 launches and device time (``threefry_*``, the draw form's among them, by
-call form) beside the totals. For the pegasus it
+call form) and K-prim's (``prim_closest_hit_kernel``,
+``prim_any_hit_kernel``) beside the totals. For the pegasus it
 also prints the share of the sky's lookup (`Hdri.get_color`, which the
 path makes on every lane of every level): its host time against the
 wall, and its kernels' device time against the busy time. Imports
@@ -34,6 +37,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[:0] = [ROOT, os.path.join(ROOT, "examples"), os.path.dirname(os.path.abspath(__file__))]
 
 import torch_dragon as dr  # noqa: E402
+import torch_fractal_spheres as fractal  # noqa: E402
 import torch_marbles as marbles  # noqa: E402
 import torch_pegasus as peg  # noqa: E402
 import torch_volumetric_pathtrace_lampshade as vol  # noqa: E402
@@ -46,7 +50,8 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--scene", default="dragon",
-                        choices=("dragon", "lampshade", "pegasus", "marbles"))
+                        choices=("dragon", "lampshade", "pegasus", "marbles",
+                                 "fractal_spheres"))
     parser.add_argument("--size", type=int, default=None)
     parser.add_argument("--spp", type=int, default=2)
     args = parser.parse_args()
@@ -68,6 +73,10 @@ def main():
         width = args.size or marbles.WIDTH
         height = width * marbles.HEIGHT // marbles.WIDTH
         r = marbles.renderer(args.device, width=width, height=height, sample=args.spp)
+    elif args.scene == "fractal_spheres":
+        r = fractal.renderer(args.device)
+        if args.size:
+            r.width(args.size).height(args.size * fractal.HEIGHT // fractal.WIDTH)
     else:
         r = vol.renderer(args.device, size=args.size or vol.size, sample=args.spp)
     scene, dev = r.compiled, r.device

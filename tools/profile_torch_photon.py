@@ -126,6 +126,13 @@ def _profiled(name, fn, device, annotations=(), samples=None):
           + f" of {len(kernels)}, {rng_ms:.1f} ms device ({100.0 * rng_ms / max(busy, 1e-9):.1f}%"
           f" of the busy time); by form: "
           + (", ".join(f"{form} {n}" for form, n in sorted(forms.items())) or "none"))
+    prim = {kname: v for kname, v in by_name.items()
+            if "prim_closest_hit_kernel" in kname or "prim_any_hit_kernel" in kname}
+    print(f"   K-prim (prim_*_hit_kernel): "
+          + (", ".join(f"{'any hit' if 'any' in kname else 'closest hit'} {count} launches"
+                       + (f" ({count / samples:.0f} a sample)" if samples else "")
+                       + f", {ms:.2f} ms device" for kname, (ms, count) in sorted(prim.items()))
+             or "none"))
     for label in annotations:
         ranges = [e for e in events if e.name == label
                   and e.device_type == torch.autograd.DeviceType.CPU]
