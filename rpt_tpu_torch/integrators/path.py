@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import sampling
+from .. import sampling, tracing
 from ..dtypes import DTYPE
 from ..intersect import closest_hit, occluded
 from ..lights import illuminate
@@ -167,32 +167,33 @@ def trace_surface(scene, tables, ray: Ray, keys, max_bounces: int, return_stats:
     segments = torch.zeros((), dtype=torch.int64, device=dev)
     contribs, factors = [], []
     for b in range(max_bounces + 1):
-        kb = sampling.fold(keys, b)
-        hit = closest_hit(scene, tables, ray)
-        hitmask = alive & hit.valid
-        missmask = alive & ~hit.valid
+        with tracing.span("path.level"):
+            kb = sampling.fold(keys, b)
+            hit = closest_hit(scene, tables, ray)
+            hitmask = alive & hit.valid
+            missmask = alive & ~hit.valid
 
-        mat = materials.lookup(hit.material)
-        pos = _sanitize(ray.at(hit.time), hitmask)
-        wo = -ray.dir.normalize()
-        if b == 0:  # emission only at bounce 0 (renderer.rs:295-299)
-            emit = where(hitmask, mat.color_query() * mat.emittance_query(), zero)
-        else:
-            emit = zero
-        nee = sample_lights(scene, tables, mat, pos, hit.normal, wo, sampling.fold(kb, 2),
-                            mask=hitmask)
-        env = scene.env_color(tables, ray.dir)
-        contribs.append(emit + where(hitmask, nee, zero) + where(missmask, env, zero))
+            mat = materials.lookup(hit.material)
+            pos = _sanitize(ray.at(hit.time), hitmask)
+            wo = -ray.dir.normalize()
+            if b == 0:  # emission only at bounce 0 (renderer.rs:295-299)
+                emit = where(hitmask, mat.color_query() * mat.emittance_query(), zero)
+            else:
+                emit = zero
+            nee = sample_lights(scene, tables, mat, pos, hit.normal, wo, sampling.fold(kb, 2),
+                                mask=hitmask)
+            env = scene.env_color(tables, ray.dir)
+            contribs.append(emit + where(hitmask, nee, zero) + where(missmask, env, zero))
 
-        wi, pdf, valid = sample_f(mat, hit.normal, wo, sampling.fold(kb, 3))
-        f = bsdf(mat, hit.normal, wo, wi)
-        bounce_ok = hitmask & valid & (b < max_bounces)
-        factor = f * (torch.abs(wi.dot(hit.normal)) / torch.clamp(pdf, min=1e-20))
-        factors.append(where(bounce_ok, factor, zero))
-        segments = segments + alive.sum() + hitmask.sum() * n_shadow
+            wi, pdf, valid = sample_f(mat, hit.normal, wo, sampling.fold(kb, 3))
+            f = bsdf(mat, hit.normal, wo, wi)
+            bounce_ok = hitmask & valid & (b < max_bounces)
+            factor = f * (torch.abs(wi.dot(hit.normal)) / torch.clamp(pdf, min=1e-20))
+            factors.append(where(bounce_ok, factor, zero))
+            segments = segments + alive.sum() + hitmask.sum() * n_shadow
 
-        ray = Ray(where(bounce_ok, pos, dead_pos), where(bounce_ok, wi, dead_dir))
-        alive = bounce_ok
+            ray = Ray(where(bounce_ok, pos, dead_pos), where(bounce_ok, wi, dead_dir))
+            alive = bounce_ok
 
     # backward clamp fold: L_b = contrib_b + min(factor_b * L_{b+1}, 100)
     radiance = zero
@@ -227,63 +228,67 @@ def trace_volumetric(scene, tables, ray: Ray, keys, max_depth: int = 32,
         nw = lane.shape[0]
         if nw == 0:
             break
-        zero = Vec3.zeros(nw, dev)
-        kb = sampling.fold(keys, b)
+        with tracing.span("path.level", nw):
+            zero = Vec3.zeros(nw, dev)
+            kb = sampling.fold(keys, b)
 
-        d, _, _ = medium.sample_d(ray, sampling.fold(kb, 1))
-        hit = closest_hit(scene, tables, ray)
-        has_hit = hit.valid
-        medium_event = d < torch.where(has_hit, hit.time, BACKGROUND_DIST)
-        surface_event = ~medium_event & has_hit
-        escape_event = ~medium_event & ~has_hit
+            d, _, _ = medium.sample_d(ray, sampling.fold(kb, 1))
+            hit = closest_hit(scene, tables, ray)
+            has_hit = hit.valid
+            medium_event = d < torch.where(has_hit, hit.time, BACKGROUND_DIST)
+            surface_event = ~medium_event & has_hit
+            escape_event = ~medium_event & ~has_hit
 
-        wo = -ray.dir.normalize()
-        collision = _sanitize(ray.at(d), medium_event)
-        surf_pos = _sanitize(ray.at(hit.time), surface_event)
-        mat = materials.lookup(hit.material)
+            wo = -ray.dir.normalize()
+            collision = _sanitize(ray.at(d), medium_event)
+            surf_pos = _sanitize(ray.at(hit.time), surface_event)
+            mat = materials.lookup(hit.material)
 
-        # ---- emission (level 0 only), environment, NEE --------------------
-        med_color_c = medium.color(collision)
-        contrib = where(escape_event & (d >= BACKGROUND_DIST),
-                        scene.env_color(tables, ray.dir), zero)
-        if b == 0:
-            contrib = (contrib
-                       + where(surface_event, mat.color_query() * mat.emittance_query(), zero)
-                       + where(medium_event, med_color_c * medium.emission(collision), zero))
-        # one shared shadow origin: its position depends on the event kind
-        nee_pos = where(medium_event, collision, surf_pos)
-        nee_surf = sample_lights(scene, tables, mat, nee_pos, hit.normal, wo,
-                                 sampling.fold(kb, 2), mask=surface_event)
-        nee_med = sample_lights_for_media(scene, tables, medium, nee_pos, wo,
-                                          sampling.fold(kb, 3), mask=medium_event)
-        contrib = contrib + where(surface_event, nee_surf, zero) + where(medium_event, nee_med,
-                                                                         zero)
-        radiance[lane] += (throughput * contrib).to_array()
-        segments = segments + nw + (medium_event | surface_event).sum() * n_shadow
+            # ---- emission (level 0 only), environment, NEE ----------------
+            med_color_c = medium.color(collision)
+            contrib = where(escape_event & (d >= BACKGROUND_DIST),
+                            scene.env_color(tables, ray.dir), zero)
+            if b == 0:
+                contrib = (contrib
+                           + where(surface_event, mat.color_query() * mat.emittance_query(), zero)
+                           + where(medium_event, med_color_c * medium.emission(collision), zero))
+            # one shared shadow origin: its position depends on the event kind
+            nee_pos = where(medium_event, collision, surf_pos)
+            nee_surf = sample_lights(scene, tables, mat, nee_pos, hit.normal, wo,
+                                     sampling.fold(kb, 2), mask=surface_event)
+            nee_med = sample_lights_for_media(scene, tables, medium, nee_pos, wo,
+                                              sampling.fold(kb, 3), mask=medium_event)
+            contrib = contrib + where(surface_event, nee_surf, zero) + where(medium_event, nee_med,
+                                                                             zero)
+            radiance[lane] += (throughput * contrib).to_array()
+            segments = segments + nw + (medium_event | surface_event).sum() * n_shadow
 
-        # ---- Russian roulette continuation (p = 0.8) ----------------------
-        survive = sampling.uniform(sampling.fold(kb, 4)) < RR_P
-        # surface continuation (renderer.rs:222-234)
-        wi_s, pdf_s, valid_s = sample_f(mat, hit.normal, wo, sampling.fold(kb, 5))
-        f = bsdf(mat, hit.normal, wo, wi_s)
-        surf_factor = f * (torch.abs(wi_s.dot(hit.normal))
-                           / (torch.clamp(pdf_s, min=1e-20) * RR_P))
-        # medium continuation (renderer.rs:262-281)
-        scat_c = medium.scattering(collision)
-        ext_c = medium.absorption(collision) + scat_c
-        wi_m, ph_p = medium.sample_ph(wo, sampling.fold(kb, 6))
-        ph = medium.phase(wo, wi_m)
-        med_factor = med_color_c * ((scat_c / ext_c) * ph / (torch.clamp(ph_p, min=1e-20) * RR_P))
+            # ---- Russian roulette continuation (p = 0.8) ------------------
+            survive = sampling.uniform(sampling.fold(kb, 4)) < RR_P
+            # surface continuation (renderer.rs:222-234)
+            wi_s, pdf_s, valid_s = sample_f(mat, hit.normal, wo, sampling.fold(kb, 5))
+            f = bsdf(mat, hit.normal, wo, wi_s)
+            surf_factor = f * (torch.abs(wi_s.dot(hit.normal))
+                               / (torch.clamp(pdf_s, min=1e-20) * RR_P))
+            # medium continuation (renderer.rs:262-281)
+            scat_c = medium.scattering(collision)
+            ext_c = medium.absorption(collision) + scat_c
+            wi_m, ph_p = medium.sample_ph(wo, sampling.fold(kb, 6))
+            ph = medium.phase(wo, wi_m)
+            med_factor = med_color_c * ((scat_c / ext_c) * ph
+                                        / (torch.clamp(ph_p, min=1e-20) * RR_P))
 
-        cont = survive & (medium_event | (surface_event & valid_s))
-        throughput = throughput * where(medium_event, med_factor, surf_factor)
-        # the lanes that go on, compacted in lane order
-        sel = torch.nonzero(cont).squeeze(1)
-        ray = Ray(where(medium_event, collision, surf_pos)[sel],
-                  where(medium_event, wi_m, wi_s)[sel])
-        throughput = throughput.broadcast_to((nw,))[sel]
-        keys = keys[sel]
-        lane = lane[sel]
+            cont = survive & (medium_event | (surface_event & valid_s))
+            throughput = throughput * where(medium_event, med_factor, surf_factor)
+            # the lanes that go on, compacted in lane order (the host waits
+            # for the card in `nonzero`)
+            with tracing.span("path.compact"):
+                sel = torch.nonzero(cont).squeeze(1)
+                ray = Ray(where(medium_event, collision, surf_pos)[sel],
+                          where(medium_event, wi_m, wi_s)[sel])
+                throughput = throughput.broadcast_to((nw,))[sel]
+                keys = keys[sel]
+                lane = lane[sel]
     out = Vec3(radiance[:, 0], radiance[:, 1], radiance[:, 2])
     if return_stats:
         return out, segments

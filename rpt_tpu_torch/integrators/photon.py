@@ -44,7 +44,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .. import sampling
+from .. import sampling, tracing
 from ..accel.knn import PhotonGrid, build_grid, knn_query, knn_radius
 from ..dtypes import DTYPE, INF
 from ..intersect import closest_hit, occluded
@@ -144,64 +144,65 @@ def _shoot_launch(scene, tables, light_index: int, power_scalar: float, max_dept
         if ray.origin.x.shape[0] == 0:
             break
         nw = ray.origin.x.shape[0]
-        zero = Vec3.zeros(nw, dev)
-        kb = sampling.fold(keys, b)
-        wo = -ray.dir.normalize()
-        hit = closest_hit(scene, tables, ray)
+        with tracing.span("photon.shoot_level", nw):
+            zero = Vec3.zeros(nw, dev)
+            kb = sampling.fold(keys, b)
+            wo = -ray.dir.normalize()
+            hit = closest_hit(scene, tables, ray)
 
-        # ---- volume interaction (photon.rs:877-915) -------------------
-        if medium is not None:
-            d, _, _ = medium.sample_d(ray, sampling.fold(kb, 1))
-            vol_event = d < torch.where(hit.valid, hit.time, INF)
-            collision = where(vol_event, ray.at(d), zero)
-            med_color = medium.color(collision)
-            rr_prob = medium.scattering(collision) / medium.extinction(collision)
-            u_v = sampling.uniform(sampling.fold(kb, 2))
-            wi_v, ph_p = medium.sample_ph(wo, sampling.fold(kb, 3))
-            ph = medium.phase(wo, wi_v)
-            vol_continue = vol_event & (u_v < rr_prob)
-            vol_power_next = power * med_color * (rr_prob * ph / torch.clamp(ph_p, min=1e-20))
-        else:
-            vol_event = torch.zeros(nw, dtype=torch.bool, device=dev)
-            collision = zero
-            wi_v = wo
-            vol_continue = vol_event
-            vol_power_next = power
-        surf_event = hit.valid & ~vol_event
+            # ---- volume interaction (photon.rs:877-915) -------------------
+            if medium is not None:
+                d, _, _ = medium.sample_d(ray, sampling.fold(kb, 1))
+                vol_event = d < torch.where(hit.valid, hit.time, INF)
+                collision = where(vol_event, ray.at(d), zero)
+                med_color = medium.color(collision)
+                rr_prob = medium.scattering(collision) / medium.extinction(collision)
+                u_v = sampling.uniform(sampling.fold(kb, 2))
+                wi_v, ph_p = medium.sample_ph(wo, sampling.fold(kb, 3))
+                ph = medium.phase(wo, wi_v)
+                vol_continue = vol_event & (u_v < rr_prob)
+                vol_power_next = power * med_color * (rr_prob * ph / torch.clamp(ph_p, min=1e-20))
+            else:
+                vol_event = torch.zeros(nw, dtype=torch.bool, device=dev)
+                collision = zero
+                wi_v = wo
+                vol_continue = vol_event
+                vol_power_next = power
+            surf_event = hit.valid & ~vol_event
 
-        # ---- surface interaction (photon.rs:813-874) ------------------
-        mat = materials.lookup(hit.material)
-        spos = where(surf_event, ray.at(hit.time), zero)
-        p_d = 0.7  # hardcoded diffuse RR (photon.rs:821-833)
-        u_s = sampling.uniform(sampling.fold(kb, 4))
-        wi_s, pdf_s, valid_s = sample_f(mat, hit.normal, wo, sampling.fold(kb, 5))
-        f = bsdf(mat, hit.normal, wo, wi_s)
-        cos_raw = wi_s.dot(hit.normal)
-        cosine_term = torch.where(cos_raw > 0.0, cos_raw, 1.0)  # photon.rs:846-850
-        surf_continue = surf_event & (u_s < p_d) & valid_s
-        surf_power_next = power * f * (cosine_term / (torch.clamp(pdf_s, min=1e-20) * p_d))
-        # deposit only on the survive branch, never on mirrors (:838-873)
-        surf_deposit = surf_continue & ~mat.is_mirror()
+            # ---- surface interaction (photon.rs:813-874) ------------------
+            mat = materials.lookup(hit.material)
+            spos = where(surf_event, ray.at(hit.time), zero)
+            p_d = 0.7  # hardcoded diffuse RR (photon.rs:821-833)
+            u_s = sampling.uniform(sampling.fold(kb, 4))
+            wi_s, pdf_s, valid_s = sample_f(mat, hit.normal, wo, sampling.fold(kb, 5))
+            f = bsdf(mat, hit.normal, wo, wi_s)
+            cos_raw = wi_s.dot(hit.normal)
+            cosine_term = torch.where(cos_raw > 0.0, cos_raw, 1.0)  # photon.rs:846-850
+            surf_continue = surf_event & (u_s < p_d) & valid_s
+            surf_power_next = power * f * (cosine_term / (torch.clamp(pdf_s, min=1e-20) * p_d))
+            # deposit only on the survive branch, never on mirrors (:838-873)
+            surf_deposit = surf_continue & ~mat.is_mirror()
 
-        # ---- deposits: [pos, wo, PRE-attenuation power, beam start] ----
-        dpos = where(vol_event, collision, spos)
-        rows = torch.stack(
-            [dpos.x, dpos.y, dpos.z, wo.x, wo.y, wo.z,
-             power.x.expand(nw), power.y.expand(nw), power.z.expand(nw),
-             ray.origin.x.expand(nw), ray.origin.y.expand(nw), ray.origin.z.expand(nw)],
-            dim=1,
-        )
-        s_out.append(rows[surf_deposit])
-        v_out.append(rows[vol_event])
+            # ---- deposits: [pos, wo, PRE-attenuation power, beam start] ----
+            dpos = where(vol_event, collision, spos)
+            rows = torch.stack(
+                [dpos.x, dpos.y, dpos.z, wo.x, wo.y, wo.z,
+                 power.x.expand(nw), power.y.expand(nw), power.z.expand(nw),
+                 ray.origin.x.expand(nw), ray.origin.y.expand(nw), ray.origin.z.expand(nw)],
+                dim=1,
+            )
+            s_out.append(rows[surf_deposit])
+            v_out.append(rows[vol_event])
 
-        # ---- next level: survivors compacted in lane order -------------
-        cont = vol_continue | surf_continue
-        new_power = where(vol_event, vol_power_next, surf_power_next)
-        new_ray = Ray(dpos, where(vol_event, wi_v, wi_s))
-        sel = torch.nonzero(cont).squeeze(1)
-        ray = Ray(new_ray.origin[sel], new_ray.dir[sel])
-        power = new_power.broadcast_to((nw,))[sel]
-        keys = keys[sel]
+            # ---- next level: survivors compacted in lane order -------------
+            cont = vol_continue | surf_continue
+            new_power = where(vol_event, vol_power_next, surf_power_next)
+            new_ray = Ray(dpos, where(vol_event, wi_v, wi_s))
+            sel = torch.nonzero(cont).squeeze(1)
+            ray = Ray(new_ray.origin[sel], new_ray.dir[sel])
+            power = new_power.broadcast_to((nw,))[sel]
+            keys = keys[sel]
 
     s_rows, v_rows = torch.cat(s_out), torch.cat(v_out)
     dropped = max(0, s_rows.shape[0] - s_cap) + max(0, v_rows.shape[0] - v_cap)
@@ -270,12 +271,14 @@ def build_photon_map(scene, tables, surface_rows, volume_rows, kind: str, gather
         v_grid = build_grid(volume_rows[:, 0:3].contiguous())
         v = volume_rows[v_grid.order]
         nv = v.shape[0]
-        radius = _knn_radius_device(v_grid, RADIUS_K)
+        with tracing.span("photon.knn_radius"):
+            radius = _knn_radius_device(v_grid, RADIUS_K)
         if nv:
             print("Finished calculating Photon radiuses "
                   f"{(float(radius.mean()), float(radius.max()), float(radius.min()))}")
-        data.spheres = build_sphere_table(
-            pack_spheres_transposed(v[:, 0:3], radius, v[:, 3:6], v[:, 6:9]), nv)
+        with tracing.span("photon.sphere_table"):
+            data.spheres = build_sphere_table(
+                pack_spheres_transposed(v[:, 0:3], radius, v[:, 3:6], v[:, 6:9]), nv)
     else:
         # thinned in shoot order, before any sort (photon.rs:773-793)
         keep = torch.from_numpy(beam_keep_mask(rng, volume_rows.shape[0]))
@@ -320,7 +323,8 @@ def surface_estimate(scene, tables, pmap: PhotonMapData, ray: Ray, hit, gather_s
     wo = -ray.dir.normalize()
     mat = tables["materials"].lookup(hit.material)
 
-    idx, d2, valid = knn_query(pmap.surface_grid, pos.to_array().contiguous(), gather_size)
+    with tracing.span("photon.gather"):
+        idx, d2, valid = knn_query(pmap.surface_grid, pos.to_array().contiguous(), gather_size)
     max_d2 = torch.where(valid, d2, 0.0).max(dim=1).values
     rows = pmap.surface[idx.reshape(-1)]  # (n*k, ROW), lane-major
     k = gather_size
@@ -339,7 +343,8 @@ def surface_estimate(scene, tables, pmap: PhotonMapData, ray: Ray, hit, gather_s
         sray = Ray(p_pos, disp / torch.clamp(dist, min=1e-20))
         # dead lanes get limit -1: never occluded, never counted
         limit = torch.where(ok, dist * (1.0 - scene.shadow_eps), -1.0)
-        ok = ok & ~occluded(scene, tables, sray, limit)
+        with tracing.span("photon.occlusion"):
+            ok = ok & ~occluded(scene, tables, sray, limit)
     f = bsdf(mat.repeat(k), normal_f, wo.map(rep), p_dir)
     contrib = f * p_pow * torch.clamp(p_dir.dot(normal_f), 0.0, 1.0)
     c = where(ok, contrib, Vec3.zeros(n * k, dev)).to_array().reshape(n, k, 3).sum(dim=1)
@@ -369,7 +374,8 @@ def volume_estimate_point(scene, tables, pmap: PhotonMapData, medium, ray: Ray, 
 
     if pmap.volume_grid is not None and pmap.volume_grid.n > 0:
         kv = gather_size_volume
-        idx, d2, valid = knn_query(pmap.volume_grid, collision.to_array().contiguous(), kv)
+        with tracing.span("photon.gather"):
+            idx, d2, valid = knn_query(pmap.volume_grid, collision.to_array().contiguous(), kv)
         max_d2 = torch.where(valid, d2, 0.0).max(dim=1).values
         rows = pmap.volume[idx.reshape(-1)]  # (n*kv, ROW), lane-major
 
@@ -417,16 +423,18 @@ def volume_estimate_spheres(pmap: PhotonMapData, medium, ray: Ray, hit) -> Vec3:
     hit_time = torch.where(hit.valid, hit.time, INF)
     ray_o, ray_d = ray.origin.to_array().contiguous(), ray.dir.to_array().contiguous()
     one = torch.ones(3, dtype=DTYPE, device=dev)
-    if medium.phase_const is None:
-        def phase(photon_dir, ray_dir):
-            return medium.phase(-Vec3(*photon_dir), -Vec3(*ray_dir))
 
-        out = sphere_sweep_phase(ray_o, ray_d, hit_time, pmap.spheres.spheres_t, ext, one,
-                                 pmap.spheres.n_spheres, phase)
-    else:
-        out = sphere_sweep(ray_o, ray_d, hit_time, pmap.spheres, ext, one,
-                           n_spheres=pmap.spheres.n_spheres,
-                           phase_const=float(medium.phase_const))
+    def phase(photon_dir, ray_dir):
+        return medium.phase(-Vec3(*photon_dir), -Vec3(*ray_dir))
+
+    with tracing.span("photon.sweep"):
+        if medium.phase_const is None:
+            out = sphere_sweep_phase(ray_o, ray_d, hit_time, pmap.spheres.spheres_t, ext, one,
+                                     pmap.spheres.n_spheres, phase)
+        else:
+            out = sphere_sweep(ray_o, ray_d, hit_time, pmap.spheres, ext, one,
+                               n_spheres=pmap.spheres.n_spheres,
+                               phase_const=float(medium.phase_const))
     return Vec3(out[:, 0], out[:, 1], out[:, 2]) * med_color
 
 

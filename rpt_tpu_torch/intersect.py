@@ -25,6 +25,7 @@ from dataclasses import dataclass
 
 import torch
 
+from . import tracing
 from .dtypes import DTYPE, EPS, INF
 from .ops import bvh_traverse as kernels
 from .ops import prim_hit
@@ -557,31 +558,38 @@ def _prim_best(scene, tables, ray: Ray, t_min) -> Hit:
 
 def closest_hit(scene, tables, ray: Ray, t_min=None) -> Hit:
     """Masked min over all primitive batches and the triangles — the
-    wavefront analog of `Renderer::get_closest_hit` (renderer.rs:416-425)."""
+    wavefront analog of `Renderer::get_closest_hit` (renderer.rs:416-425).
+    Its span, ``intersect.closest``, holds K-prim and K1 or
+    `dense_tri_hit`'s chain."""
     if t_min is None:
         t_min = scene.t_min
-    best = _prim_best(scene, tables, ray, t_min)
-    if scene.n_tris:
-        best = bvh_closest_hit(tables["bvh"], ray, t_min, best)
+    with tracing.span("intersect.closest"):
+        best = _prim_best(scene, tables, ray, t_min)
+        if scene.n_tris:
+            best = bvh_closest_hit(tables["bvh"], ray, t_min, best)
     return best
 
 
 def prim_occluded(scene, tables, ray: Ray, limit, t_min=None) -> torch.Tensor:
     """Occlusion by the analytic primitives only; the mesh is not tested
     (`rpt_tpu/intersect.py:846`): ``_prim_best(...).time < limit``, K-prim's
-    any-hit entry on a CUDA tensor."""
+    any-hit entry on a CUDA tensor. Its span is ``intersect.occluded``."""
     if t_min is None:
         t_min = scene.t_min
-    return prim_hit.prim_any_hit(scene.prim_rows, ray, t_min, limit)
+    with tracing.span("intersect.occluded"):
+        return prim_hit.prim_any_hit(scene.prim_rows, ray, t_min, limit)
 
 
 def occluded(scene, tables, ray: Ray, limit, t_min=None) -> torch.Tensor:
     """True where any geometry lies at t in [t_min, limit) along the ray —
     the shadow query (lanes with limit -1 are never occluded). Lanes an
-    analytic primitive already occludes skip the mesh traversal."""
+    analytic primitive already occludes skip the mesh traversal. Its span,
+    ``intersect.occluded``, holds K-prim and K2 or `dense_tri_hit`'s
+    chain."""
     if t_min is None:
         t_min = scene.t_min
-    occ = prim_occluded(scene, tables, ray, limit, t_min)
-    if scene.n_tris:
-        occ = occ | bvh_any_hit(tables["bvh"], ray, t_min, limit, skip=occ)
+    with tracing.span("intersect.occluded"):
+        occ = prim_hit.prim_any_hit(scene.prim_rows, ray, t_min, limit)
+        if scene.n_tris:
+            occ = occ | bvh_any_hit(tables["bvh"], ray, t_min, limit, skip=occ)
     return occ

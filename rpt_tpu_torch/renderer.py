@@ -15,8 +15,9 @@ All four integrators run: path tracing (``render``, ``sample``,
 kinds (``photon_map_render``, ``photon_point_query_beam_render``,
 ``photon_beam_query_beam_render``) through `integrators.photon`.
 
-``profile(trace_dir)`` records the next ``sample`` call under
-``torch.profiler``; ``RPT_TPU_PREVIEW`` shrinks a render for smoke runs
+``profile(trace_dir)`` records the next ``sample`` or ``photon_render``
+call under ``torch.profiler``, with the program's spans (`tracing`) on a
+track of their own; ``RPT_TPU_PREVIEW`` shrinks a render for smoke runs
 (`_apply_preview`), as in the JAX package. The multi-device passes are
 `rpt_tpu_torch.parallel`'s.
 """
@@ -24,6 +25,7 @@ kinds (``photon_map_render``, ``photon_point_query_beam_render``,
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import time
 from dataclasses import dataclass, field
@@ -31,7 +33,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from . import sampling
+from . import sampling, tracing
 from .buffer import Buffer, Filter
 from .camera import Camera
 from .dtypes import DTYPE, resolve_device
@@ -123,10 +125,13 @@ class Renderer:
         return self
 
     def profile(self, trace_dir: str):
-        """Record the next ``sample`` call (one-shot) under
-        ``torch.profiler``, the CPU and, on the card, its kernels, and write
-        a Chrome trace into ``trace_dir`` (`rpt_tpu/renderer.py:114-120`;
-        the reference has no profiler). The image is unchanged."""
+        """Record the next ``sample`` or ``photon_render`` call (one-shot)
+        under ``torch.profiler``, the CPU and, on the card, its kernels, and
+        write a Chrome trace into ``trace_dir`` (`rpt_tpu/renderer.py:114-120`;
+        the reference has no profiler). The call's spans (`tracing`) go
+        into the trace as complete events on a track of their own, on the
+        profiler's time base, so each idle gap of the card lies under the
+        span the host was in. The image is unchanged."""
         self._profile_dir = trace_dir
         return self
 
@@ -180,22 +185,33 @@ class Renderer:
         indices are absolute across calls, as in the JAX package."""
         scene = self.compiled
         profile_dir, self._profile_dir = self._profile_dir, None
-        t0 = time.perf_counter()
-        with self._recording(profile_dir) as prof:
+        with self._recording(profile_dir) as prof, tracing.span("sample") as root:
+            t0 = time.perf_counter()
             total, segments = _path_pass(scene, self.camera, self.width_, self.height_,
                                          sampling.key(self.seed_, self.device),
                                          self._sample_index, int(iterations), self.max_bounces_,
                                          self.media_max_depth_)
-        elapsed = time.perf_counter() - t0
+            self.ray_counter.record(time.perf_counter() - t0, segments)
+            mean = total / iterations * (2.0**self.exposure_value_)
+            with tracing.span("frontend.accumulate"):
+                buffer.add_samples(mean.reshape(self.height_, self.width_, 3))
         if profile_dir:
-            os.makedirs(profile_dir, exist_ok=True)
-            prof.export_chrome_trace(
-                os.path.join(profile_dir, f"sample_{self._sample_index}.trace.json"))
+            self._write_trace(prof, root.request, profile_dir, f"sample_{self._sample_index}")
         self._sample_index += iterations
-        self.ray_counter.record(scene, self.width_, self.height_, iterations,
-                                self.max_bounces_, self.media_max_depth_, elapsed, segments)
-        mean = total / iterations * (2.0**self.exposure_value_)
-        buffer.add_samples(mean.reshape(self.height_, self.width_, 3))
+
+    def _write_trace(self, prof, request: int, profile_dir: str, stem: str):
+        """The profile's Chrome trace ``<stem>.trace.json``, with the spans
+        of ``request`` added."""
+        os.makedirs(profile_dir, exist_ok=True)
+        path = os.path.join(profile_dir, f"{stem}.trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+        mine = [s for s in tracing.spans() if s.request == request]
+        trace["traceEvents"] += tracing.chrome_events(mine, trace.get("baseTimeNanoseconds", 0),
+                                                      os.getpid())
+        with open(path, "w") as f:
+            json.dump(trace, f)
 
     # ------------------------------------------------------------------
     # Photon mapping (photon.rs:642-720)
@@ -227,6 +243,17 @@ class Renderer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    @contextlib.contextmanager
+    def _phase(self, name: str, seconds: dict):
+        """A phase of `photon_render`: ``seconds[name]`` is the host time
+        from its start to the device sync at its end, and the span
+        ``photon.<name>`` encloses both readings."""
+        with tracing.span(f"photon.{name}"):
+            t0 = time.perf_counter()
+            yield
+            self._sync()
+            seconds[name] = time.perf_counter() - t0
+
     def photon_render(self, photon_count: int, kind: str,
                       occlusion_check: bool = True) -> np.ndarray:
         """Shoot, build the map, run the camera pass; returns the (H, W, 3)
@@ -243,71 +270,57 @@ class Renderer:
                                int(os.environ.get("RPT_TPU_PREVIEW_PHOTONS", "5000")))
         scene = self.compiled
         key = sampling.key(self.seed_, self.device)
+        seconds = {}
+        profile_dir, self._profile_dir = self._profile_dir, None
+        with self._recording(profile_dir) as prof, tracing.span("photon_render") as root:
+            print("Shooting photons")
+            with self._phase("shoot", seconds):
+                photons = ph.shoot_photons_device(
+                    scene, scene.tables, sampling.fold_in(key, 1), photon_count, self.watts_
+                )
+            n_s, n_v = photons.surface.shape[0], photons.volume.shape[0]
+            print(f"PhotonList(surface: {n_s}, volume: {n_v})")
+            self.photon_counts = {"surface": n_s, "volume": n_v, "dropped": photons.dropped}
 
-        print("Shooting photons")
-        t0 = time.perf_counter()
-        photons = ph.shoot_photons_device(
-            scene, scene.tables, sampling.fold_in(key, 1), photon_count, self.watts_
-        )
-        self._sync()
-        t_shoot = time.perf_counter() - t0
-        n_s, n_v = photons.surface.shape[0], photons.volume.shape[0]
-        print(f"PhotonList(surface: {n_s}, volume: {n_v})")
-        self.photon_counts = {"surface": n_s, "volume": n_v, "dropped": photons.dropped}
+            print("Building photon maps")
+            with self._phase("build", seconds):
+                pmap = ph.build_photon_map(scene, scene.tables, photons.surface, photons.volume,
+                                           kind, self.gather_size_, self.gather_size_volume_,
+                                           np.random.default_rng(self.seed_ + 17))
+            self.photon_map = pmap
 
-        print("Building photon maps")
-        t0 = time.perf_counter()
-        pmap = ph.build_photon_map(scene, scene.tables, photons.surface, photons.volume,
-                                   kind, self.gather_size_, self.gather_size_volume_,
-                                   np.random.default_rng(self.seed_ + 17))
-        self._sync()
-        t_build = time.perf_counter() - t0
-        self.photon_map = pmap
+            print("Tracing rays")
+            with self._phase("trace", seconds):
+                total = _photon_pass(scene, self.camera, self.width_, self.height_, pmap,
+                                     sampling.fold_in(key, 2), self.num_samples_,
+                                     self.gather_size_, self.gather_size_volume_, occlusion_check)
+            self.phase_seconds = seconds
+            print(f"photon phases: shoot {seconds['shoot']:.1f}s build {seconds['build']:.1f}s "
+                  f"trace {seconds['trace']:.1f}s")
 
-        print("Tracing rays")
-        t0 = time.perf_counter()
-        total = _photon_pass(scene, self.camera, self.width_, self.height_, pmap,
-                             sampling.fold_in(key, 2), self.num_samples_,
-                             self.gather_size_, self.gather_size_volume_, occlusion_check)
-        self._sync()
-        t_trace = time.perf_counter() - t0
-        self.phase_seconds = {"shoot": t_shoot, "build": t_build, "trace": t_trace}
-        print(f"photon phases: shoot {t_shoot:.1f}s build {t_build:.1f}s trace {t_trace:.1f}s")
-
-        mean = total / self.num_samples_ * (2.0**self.exposure_value_)
-        buffer = Buffer(self.width_, self.height_, self.filter_)
-        buffer.add_samples(mean.reshape(self.height_, self.width_, 3))
+            mean = total / self.num_samples_ * (2.0**self.exposure_value_)
+            buffer = Buffer(self.width_, self.height_, self.filter_)
+            with tracing.span("frontend.accumulate"):
+                buffer.add_samples(mean.reshape(self.height_, self.width_, 3))
+        if profile_dir:
+            self._write_trace(prof, root.request, profile_dir, f"photon_render_{kind}")
         self._last_buffer = buffer
         return buffer.image()
 
 
 class RayCounter:
-    """Rays/s instrumentation (`rpt_tpu/renderer.py:293`; the reference has
-    none). ``rays`` is the JAX package's estimate: every path runs every
-    level and casts one shadow segment per non-ambient light at each.
-    ``segments`` counts the segments `trace_surface` or
-    `trace_volumetric` traced, as `bench.py` does."""
+    """The ray segments `trace_surface` or `trace_volumetric` traced
+    (camera or bounce, and shadow; counted on the card), and the host
+    seconds of the passes that traced them (`rpt_tpu/renderer.py:293`; the
+    reference has none)."""
 
     def __init__(self):
-        self.rays = 0
         self.segments = 0
         self.seconds = 0.0
 
-    def record(self, scene, width, height, iterations, max_bounces, media_depth, elapsed,
-               segments: int = 0):
-        paths = width * height * iterations
-        n_shadow = sum(1 for light in scene.lights if light.kind != "ambient")
-        if scene.media:
-            segs = 1.0 / (1.0 - 0.8)  # expected path length under RR p=0.8
-        else:
-            segs = max_bounces + 1
-        self.rays += int(paths * segs * (1 + n_shadow))
+    def record(self, elapsed: float, segments: int):
         self.segments += int(segments)
         self.seconds += elapsed
-
-    @property
-    def mrays_per_sec(self) -> float:
-        return self.rays / self.seconds / 1e6 if self.seconds else 0.0
 
 
 def _morton2(px: np.ndarray, py: np.ndarray) -> np.ndarray:
@@ -345,8 +358,10 @@ def _pixel_grid(width: int, height: int):
 def camera_wavefront(scene, camera: Camera, width: int, height: int, key, s: int):
     """Sample ``s``'s camera wavefront in Morton lane order and its
     per-lane keys (`camera_rays`). Returns ``(ray, keys)``."""
-    xn_np, yn_np, pixel_ids, _ = _pixel_grid(width, height)
-    return camera_rays(scene, camera, float(max(width, height)), xn_np, yn_np, pixel_ids, key, s)
+    with tracing.span("frontend.camera"):
+        xn_np, yn_np, pixel_ids, _ = _pixel_grid(width, height)
+        return camera_rays(scene, camera, float(max(width, height)), xn_np, yn_np, pixel_ids,
+                           key, s)
 
 
 def camera_rays(scene, camera: Camera, dim: float, xn_np, yn_np, pixel_ids, key, s: int):
@@ -387,18 +402,18 @@ def _path_pass(scene, camera: Camera, width: int, height: int, key, s0: int, n_s
         ray, keys = camera_wavefront(scene, camera, width, height, key, s)
         trace_keys = sampling.fold(keys, 4)
         for c in range(0, n_pix, PATH_CHUNK):
-            sl = slice(c, min(c + PATH_CHUNK, n_pix))
-            piece = Ray(ray.origin[sl], ray.dir[sl])
-            if scene.media:
-                color, segs = trace_volumetric(scene, scene.tables, piece, trace_keys[sl],
-                                               media_max_depth, return_stats=True)
-            else:
-                color, segs = trace_surface(scene, scene.tables, piece, trace_keys[sl],
-                                            max_bounces, return_stats=True)
-            total[sl] += color.to_array()
-            segments += segs
-    inv = torch.tensor(_pixel_grid(width, height)[3], device=dev)
-    return total[inv].cpu().numpy().astype(np.float64), int(segments)
+            with tracing.span("path.chunk"):
+                sl = slice(c, min(c + PATH_CHUNK, n_pix))
+                piece = Ray(ray.origin[sl], ray.dir[sl])
+                if scene.media:
+                    color, segs = trace_volumetric(scene, scene.tables, piece, trace_keys[sl],
+                                                   media_max_depth, return_stats=True)
+                else:
+                    color, segs = trace_surface(scene, scene.tables, piece, trace_keys[sl],
+                                                max_bounces, return_stats=True)
+                total[sl] += color.to_array()
+                segments += segs
+    return _raster(total, width, height), int(segments)
 
 
 def _photon_pass(scene, camera: Camera, width: int, height: int, pmap, key,
@@ -414,13 +429,22 @@ def _photon_pass(scene, camera: Camera, width: int, height: int, pmap, key,
     n_pix = width * height
     total = torch.zeros((n_pix, 3), dtype=torch.float32, device=dev)
     for s in range(n_samples):
-        ray, keys = camera_wavefront(scene, camera, width, height, key, s)
-        ekeys = sampling.fold(keys, 4)
-        for c in range(0, n_pix, PIXEL_CHUNK):
-            sl = slice(c, min(c + PIXEL_CHUNK, n_pix))
-            color = estimate_indirect(scene, scene.tables, pmap, Ray(ray.origin[sl], ray.dir[sl]),
-                                      ekeys[sl], gather_size, gather_size_volume,
-                                      occlusion_check)
-            total[sl] += color.to_array()
-    inv = torch.tensor(_pixel_grid(width, height)[3], device=dev)
-    return total[inv].cpu().numpy().astype(np.float64)
+        with tracing.span("photon.sample"):
+            ray, keys = camera_wavefront(scene, camera, width, height, key, s)
+            ekeys = sampling.fold(keys, 4)
+            for c in range(0, n_pix, PIXEL_CHUNK):
+                with tracing.span("photon.estimate"):
+                    sl = slice(c, min(c + PIXEL_CHUNK, n_pix))
+                    color = estimate_indirect(scene, scene.tables, pmap,
+                                              Ray(ray.origin[sl], ray.dir[sl]), ekeys[sl],
+                                              gather_size, gather_size_volume, occlusion_check)
+                    total[sl] += color.to_array()
+    return _raster(total, width, height)
+
+
+def _raster(total, width: int, height: int) -> np.ndarray:
+    """The (H*W, 3) f32 sum of Morton-ordered lanes as a host f64 array in
+    raster order."""
+    with tracing.span("frontend.gather_out"):
+        inv = torch.tensor(_pixel_grid(width, height)[3], device=total.device)
+        return total[inv].cpu().numpy().astype(np.float64)

@@ -616,3 +616,46 @@ def test_prim_kernels_match_plain_on_card(name, n):
     assert 0.05 < float(occ_ref.float().mean()) < 0.95
     assert float((occ == occ_ref).float().mean()) >= 0.9999
     assert not bool(occ[limit <= scene.t_min].any())
+
+
+@pytest.mark.cuda
+def test_a_span_encloses_its_kernel_on_card():
+    """The spans (`rpt_tpu_torch.tracing`) and the profiler's device events
+    share one clock: a span around one K-prim launch and a synchronize
+    encloses that kernel's device interval as the profiler reports it, and
+    its launch delta is the one launch. Prints the offsets (span start to
+    kernel start, kernel end to span end) in microseconds."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    from rpt_tpu_torch import tracing
+    from rpt_tpu_torch.ops import prim_hit as ph
+    from rpt_tpu_torch.ray import Ray
+    from rpt_tpu_torch.vec import Vec3
+
+    scene = _prim_scene("cubes")
+    rng = np.random.default_rng(3)
+    o = rng.normal(size=(16384, 3))
+    o = 8.0 * o / np.linalg.norm(o, axis=1, keepdims=True)
+    d = rng.uniform(-2, 2, o.shape) - o
+    ray = Ray(Vec3.from_array(o, "cuda"),
+              Vec3.from_array(d / np.linalg.norm(d, axis=1, keepdims=True), "cuda"))
+    ph.prim_closest_hit(scene.prim_rows, ray, scene.t_min)
+    torch.cuda.synchronize()
+    tracing.clear()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            with tracing.span("probe"):
+                ph.prim_closest_hit(scene.prim_rows, ray, scene.t_min)
+                torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                     for e in prof.profiler.kineto_results.events()
+                     if e.device_type() == cuda and "prim_closest_hit_kernel" in e.name())
+    probes = [s for s in tracing.spans() if s.name == "probe"]
+    tracing.clear()
+    assert len(kernels) == len(probes) == 5
+    for (k0, k1), span in zip(kernels, probes):
+        print(f"span start to kernel start {(k0 - span.start_ns) / 1e3:.3f} us, kernel end to "
+              f"span end {(span.end_ns - k1) / 1e3:.3f} us, kernel {(k1 - k0) / 1e3:.3f} us")
+        assert span.start_ns <= k0 <= k1 <= span.end_ns
+        assert span.launches == {"prim_closest_hit": 1}
