@@ -86,6 +86,12 @@ per source, in parallel) and drives every ported path end to end:
   camera chunk), with the lanes that are bit-equal;
 - the volumetric path tracer on the lampshade at its example's width
   through `iterative_render`, its 1000 samples cut by ``--vol-spp``;
+  then `[K-dense]` (`csrc/dense_tri_hit.cu`, the dense test of the
+  lampshade's 12 triangles): every dense query of a 128^2 volumetric path
+  pass and of a 1M-photon point-beam render replayed through the kernel
+  and the chain of torch ops, bit for bit, and six of the wavefronts
+  (camera, bounce and shadow levels; the shoot, the camera pass and the
+  occlusion recheck) timed beside the chain and their bound;
 - the three media goldens (volumetric path, photon map, beam-beam);
 - 17 drivers that no other phase renders (`[drivers]`), each built by its
   ``renderer("cuda")`` and cut to a quarter of its size and 2 spp.
@@ -110,7 +116,10 @@ drivers (``drivers_launches``). K-prim's two entries carry the fractal's
 launches and every path's (``launches_by_path``: every path tests its rays
 against the analytic prims through K-prim, a scene without any included),
 the fractal's camera (closest hit) and shadow (any hit) times, and the
-other wavefronts' times as side fields. The skybox's volume gather is an entry of
+other wavefronts' times as side fields. K-dense's two entries carry the
+volumetric path's launches (``launches``, ``--vol-spp`` samples), the
+50-spp point-beam render's (``render_launches``) and every path's that
+made any (``launches_by_path``). The skybox's volume gather is an entry of
 its own (``knn_query_k50_volume``), its surface gather side fields of it.
 
 Every phase prints its lines; any failure raises and exits non-zero. The
@@ -271,6 +280,7 @@ def phase_render(spp_cap):
                 "knn_radius": knn_radius.launches}
     rng = _read_rng("render", shoots=True)
     prims = _read_prim("render")
+    dense = _read_dense("render", required=True)
     s, c = r.phase_seconds, r.photon_counts
     finite = bool(np.isfinite(r._last_buffer.raw()).all())
     note = "" if spp == ex.sample else f" (spp lowered from {ex.sample} to {spp})"
@@ -278,7 +288,7 @@ def phase_render(spp_cap):
           f"{s['shoot']:.3f} s, build {s['build']:.3f} s, trace {s['trace']:.3f} s; "
           f"surface {c['surface']}, volume {c['volume']}, dropped {c['dropped']}; "
           f"image mean {img.mean():.4f}, finite {finite}; launches {launches}, K-rng {rng}, "
-          f"K-prim {prims}")
+          f"K-prim {prims}, K-dense {dense}")
     if not finite or img.shape != (r.height_, r.width_, 3) or img.mean() <= 0:
         raise RuntimeError("render output is not a finite, non-black image of the right shape")
     for name, n in launches.items():
@@ -1015,32 +1025,42 @@ def phase_dragon():
     return r, launches
 
 
-def _capture_calls(r, attr: str, names) -> dict:
-    """Sample 0 of a path-traced render, traced once more with the wrappers
-    ``names`` that `rpt_tpu_torch.intersect` calls through its module
-    ``attr`` recording their arguments: ``{name: [(args, kwargs), ...]}``,
-    in call order (a chunk's levels, then the next chunk's)."""
+def _recording(attr: str, names, run) -> dict:
+    """The calls ``run()`` makes to the wrappers ``names`` that
+    `rpt_tpu_torch.intersect` calls through its module ``attr``:
+    ``{name: [(args, kwargs), ...]}``, in call order."""
     from types import SimpleNamespace
 
-    from rpt_tpu_torch import intersect, sampling
-    from rpt_tpu_torch.renderer import _path_pass
+    from rpt_tpu_torch import intersect
 
     wrappers = getattr(intersect, attr)
     calls = {name: [] for name in names}
 
     def recorder(name):
-        def run(*args, **kwargs):
+        def call(*args, **kwargs):
             calls[name].append((args, kwargs))
             return getattr(wrappers, name)(*args, **kwargs)
-        return run
+        return call
 
     setattr(intersect, attr, SimpleNamespace(**{name: recorder(name) for name in names}))
     try:
-        _path_pass(r.compiled, r.camera, r.width_, r.height_, sampling.key(r.seed_, r.device),
-                   0, 1, r.max_bounces_, r.media_max_depth_)
+        run()
     finally:
         setattr(intersect, attr, wrappers)
     return calls
+
+
+def _capture_calls(r, attr: str, names) -> dict:
+    """Sample 0 of a path-traced render, traced once more with the wrappers
+    ``names`` that `rpt_tpu_torch.intersect` calls through its module
+    ``attr`` recording their arguments (`_recording`), a chunk's levels,
+    then the next chunk's."""
+    from rpt_tpu_torch import sampling
+    from rpt_tpu_torch.renderer import _path_pass
+
+    return _recording(attr, names, lambda: _path_pass(
+        r.compiled, r.camera, r.width_, r.height_, sampling.key(r.seed_, r.device), 0, 1,
+        r.max_bounces_, r.media_max_depth_))
 
 
 def _capture_wavefronts(r):
@@ -1242,13 +1262,14 @@ def _sample0(r):
 
 def _zero_counts():
     from rpt_tpu_torch.accel.knn import knn_query, knn_radius
-    from rpt_tpu_torch.ops import prim_hit, threefry
+    from rpt_tpu_torch.ops import dense_tri_hit, prim_hit, threefry
     from rpt_tpu_torch.ops.bvh_traverse import bvh_any_hit, bvh_closest_hit
     from rpt_tpu_torch.ops.sphere_sweep import sphere_sweep
 
     for wrapper in (knn_query, knn_radius, sphere_sweep, bvh_closest_hit, bvh_any_hit,
                     *(getattr(threefry, name) for name in RNG_WRAPPERS),
-                    *(getattr(prim_hit, name) for name in K_PRIM)):
+                    *(getattr(prim_hit, name) for name in K_PRIM),
+                    *(getattr(dense_tri_hit, name) for name in K_DENSE)):
         wrapper.launches = 0
     knn_query.by_k.clear()
 
@@ -1257,6 +1278,10 @@ def _zero_counts():
 # by path (`_read_prim`)
 K_PRIM = ("prim_closest_hit", "prim_any_hit")
 PRIM_LAUNCHES: dict = {}
+# K-dense's entry points (the dense test of meshes of at most 8 leaf rows),
+# and their launches on every path that made any, by path (`_read_dense`)
+K_DENSE = ("dense_closest_hit", "dense_any_hit")
+DENSE_LAUNCHES: dict = {}
 
 
 def _read_prim(path: str) -> dict:
@@ -1275,10 +1300,26 @@ def _read_prim(path: str) -> dict:
     return counts
 
 
+def _read_dense(path: str, required: bool = False) -> dict:
+    """Record K-dense's launches of ``path`` since `_zero_counts` where it
+    made any (adding to what an earlier run of the same path recorded);
+    with ``required``, fail where either entry never launched."""
+    from rpt_tpu_torch.ops import dense_tri_hit
+
+    counts = {name: getattr(dense_tri_hit, name).launches for name in K_DENSE}
+    if required and min(counts.values()) <= 0:
+        raise RuntimeError(f"the {path} path did not launch both K-dense entries: {counts}")
+    if any(counts.values()):
+        seen = DENSE_LAUNCHES.setdefault(path, dict.fromkeys(K_DENSE, 0))
+        for name, n in counts.items():
+            seen[name] += n
+    return counts
+
+
 def _read_counts(path: str, shoots: bool = False) -> dict:
-    """The launches of K-knn, K-sweep, K1, K2 and K-prim since
+    """The launches of K-knn, K-sweep, K1, K2, K-prim and K-dense since
     `_zero_counts`; K-rng's are recorded for ``path`` by `_read_rng`,
-    K-prim's also by `_read_prim`."""
+    K-prim's also by `_read_prim`, K-dense's by `_read_dense`."""
     from rpt_tpu_torch.accel.knn import knn_query, knn_radius
     from rpt_tpu_torch.ops.bvh_traverse import bvh_any_hit, bvh_closest_hit
     from rpt_tpu_torch.ops.sphere_sweep import sphere_sweep
@@ -1287,13 +1328,14 @@ def _read_counts(path: str, shoots: bool = False) -> dict:
     return {"knn_query": knn_query.launches, "knn_query_by_k": dict(knn_query.by_k),
             "knn_radius": knn_radius.launches, "sphere_sweep": sphere_sweep.launches,
             "bvh_closest_hit": bvh_closest_hit.launches, "bvh_any_hit": bvh_any_hit.launches,
-            **_read_prim(path)}
+            **_read_dense(path), **_read_prim(path)}
 
 
 def _other_launches(launches: dict, allowed=()) -> dict:
-    """The launches of ``launches`` by kernels other than K-prim and
-    ``allowed`` that were made."""
-    return {name: n for name, n in launches.items() if n and name not in (*K_PRIM, *allowed)}
+    """The launches of ``launches`` by kernels other than K-prim, K-dense
+    (a scene's small meshes) and ``allowed`` that were made."""
+    return {name: n for name, n in launches.items()
+            if n and name not in (*K_PRIM, *K_DENSE, *allowed)}
 
 
 def _check_image(label, r, img):
@@ -1536,7 +1578,7 @@ def phase_skybox_photons(spp_cap):
     medium, so each wavefront gathers twice at k = 50: over the surface
     photons and, at its sampled collision, over the volume photons. Its 20
     triangles fill 3 leaf rows, under `intersect.DENSE_TRI_ROWS`, so they
-    take `dense_tri_hit` and launch no K1/K2. Then both gathers on sample
+    take K-dense and launch no K1/K2. Then both gathers on sample
     0's wavefronts, captured from its camera pass, against brute force.
     Returns ``(volume numbers, surface numbers, launches a gather)``."""
     import torch_skybox_photons as ex
@@ -1559,7 +1601,7 @@ def phase_skybox_photons(spp_cap):
           f"({s['trace'] / spp * 1e3:.1f} ms a sample); surface photons {c['surface']}, volume "
           f"{c['volume']} ({_nbytes(r.photon_map.volume) / 2**30:.2f} GiB of rows), deposits "
           f"dropped at the capacities (4 and 10 a photon) {c['dropped']}; "
-          f"{r.compiled.n_tris} triangles in {bvh.leaves.shape[0]} leaf rows (dense_tri_hit); "
+          f"{r.compiled.n_tris} triangles in {bvh.leaves.shape[0]} leaf rows (K-dense); "
           f"image mean {img.mean():.4f} (radiance {raw.mean():.3e}), the {int(opening.sum())} "
           f"pixels through the ceiling's opening {lit:.3e} ({lit / raw.mean():.2f}x the "
           f"image), finite {finite}; launches {launches}")
@@ -1881,8 +1923,8 @@ def phase_volpath(spp: int):
     """The volumetric path tracer at its example's width through
     `iterative_render`, its 1000 samples cut to ``spp``; one untimed
     warm-up sample first. The lampshade's 12 triangles take the dense
-    test, so the path launches no hand-written kernel but K-rng and, for
-    its six cubes, K-prim."""
+    test, so the path launches no hand-written kernel but K-rng, K-prim
+    (its six cubes) and K-dense (its triangles)."""
     import torch_volumetric_pathtrace_lampshade as ex
     from rpt_tpu_torch import Buffer
     from rpt_tpu_torch.renderer import RayCounter
@@ -1910,9 +1952,10 @@ def phase_volpath(spp: int):
         raise RuntimeError("volumetric render is not a finite, non-black image of the right shape")
     if not calls or calls[-1] != spp or segs <= spp * r.width_ * r.height_:
         raise RuntimeError("iterative_render did not trace every sample")
-    if _other_launches(launches) or launches["prim_any_hit"] <= 0:
+    if (_other_launches(launches) or launches["prim_any_hit"] <= 0
+            or min(launches[name] for name in K_DENSE) <= 0):
         raise RuntimeError(f"the lampshade's volumetric path launched K1/K2, K-knn or K-sweep, "
-                           f"or no K-prim shadow query: {launches}")
+                           f"or no K-prim shadow query, or no K-dense query: {launches}")
 
 
 def _golden(name):
@@ -2383,6 +2426,199 @@ def phase_prim(r_fractal):
     return [closest, anyhit]
 
 
+# K-dense's float32 operations a (ray, triangle) pair, counted from
+# `csrc/dense_tri_hit.cu` `slot_hit`: t (two dot products, a difference, a
+# division: 14) and its tests (5), where a pair whose t fails them stops;
+# past them the on-plane guard (3 abs, 3 adds, a product and a test: 8)
+# and the barycentrics (the point and its offset 9, two dot products 10,
+# two quotients 8, u 2, three tests 3). The table is read once a block, so
+# the bytes are what each lane reads and writes, and the tables.
+DENSE_T_OPS = 19
+DENSE_PAIR_OPS = 59
+DENSE_RAY_BYTES = 24
+
+
+def _live(args) -> int:
+    """The lanes of a captured any-hit call that test the mesh."""
+    t_min, limit, skip = args[2:]
+    return int(((torch.as_tensor(limit) > t_min) & ~skip).sum())
+
+
+def _dense_ops(bvh, ray, t_min, bound, walking, any_hit: bool) -> int:
+    """K-dense's float32 operations on a wavefront, pair by pair as its
+    threads walk the slots: `DENSE_PAIR_OPS` for a pair whose t passes its
+    tests, `DENSE_T_OPS` for one whose t fails them. Lanes in ``walking``
+    test the mesh; a closest-hit lane's bound falls to each hit's t, an
+    any-hit lane stops at its first hit. The chain's arithmetic decides."""
+    from rpt_tpu_torch.intersect import _origin_on_plane
+    from rpt_tpu_torch.vec import Vec3
+
+    shape = ray.origin.x.shape
+    comps = [torch.broadcast_to(getattr(v, c), shape).reshape(-1)
+             for v in (ray.origin, ray.dir) for c in "xyz"]
+    o, d = Vec3(*comps[:3]), Vec3(*comps[3:])
+    bound = torch.broadcast_to(torch.as_tensor(bound, device=o.x.device), shape).reshape(-1)
+    walking = walking.reshape(-1).clone()
+    ops = 0
+    for leaf in bvh.leaves:
+        leaf = leaf.reshape(10, -1)
+        for s in range(leaf.shape[1]):
+            if leaf[9, s] < 0:
+                continue
+            v1, e1, e2 = (Vec3(*leaf[c:c + 3, s]) for c in (0, 3, 6))
+            pn = e1.cross(e2).normalize()
+            cosine, num = pn.dot(d), pn.dot(v1 - o)
+            t = num / cosine
+            passes = walking & (torch.abs(cosine) >= 1e-8) & (t >= t_min) & (t < bound)
+            n_pass = int(passes.sum())
+            ops += n_pass * DENSE_PAIR_OPS + (int(walking.sum()) - n_pass) * DENSE_T_OPS
+            d2 = o + d * t - v1
+            d00, d01, d11 = e1.dot(e1), e1.dot(e2), e2.dot(e2)
+            d20, d21 = d2.dot(e1), d2.dot(e2)
+            denom = d00 * d11 - d01 * d01
+            v = (d11 * d20 - d01 * d21) / denom
+            w = (d00 * d21 - d01 * d20) / denom
+            u = 1.0 - v - w
+            hit = (passes & ~_origin_on_plane(num, pn, v1, o)
+                   & (u >= 0.0) & (v >= 0.0) & (w >= 0.0))
+            if any_hit:
+                walking &= ~hit
+            else:
+                bound = torch.where(hit, t, bound)
+    return ops
+
+
+def _dense_case(label: str, any_hit: bool, args) -> dict:
+    """K-dense on one captured wavefront against the chain on the same
+    tensors (`dense_tri_hit_plain`; for any hit its ``time < limit``, the
+    ``skip`` lanes false): the bit-equal lanes, the kernel's device time
+    (`_device_ms`) and the host's enqueue, the chain's time (CUDA events
+    around one call) and the bound."""
+    from rpt_tpu_torch.intersect import dense_tri_hit_plain
+    from rpt_tpu_torch.ops import dense_tri_hit as kd
+
+    bvh, ray, t_min = args[:3]
+    n = ray.origin.x.numel()
+    tris = int((bvh.leaves[:, 72:] >= 0).sum())
+    tables = _nbytes(bvh.leaves, bvh.shade)
+    if any_hit:
+        limit, skip = args[3:]
+        got = kd.dense_any_hit(*args)
+        ref, plain_ms = _events_ms(lambda: kd.dense_any_hit_plain(*args))
+        equal = got == ref
+        live = (torch.as_tensor(limit) > t_min) & ~skip
+        # every lane reads its limit and skip and writes its flag; a live
+        # lane reads its ray
+        n_bytes = n * (4 + 1 + 1) + int(live.sum()) * DENSE_RAY_BYTES + tables
+        ops = _dense_ops(bvh, ray, t_min, limit, live, any_hit=True)
+        bound_ms, bound_by = _bound(n_bytes, ops)
+        detail = (f"{int((~live).sum())} gated off (skip or limit <= t_min), "
+                  f"{float(ref.float().mean()):.4f} occluded")
+        ms, enqueue = _device_ms(lambda: kd.dense_any_hit(*args))
+    else:
+        got = kd.dense_closest_hit(*args)
+        ref, plain_ms = _events_ms(lambda: dense_tri_hit_plain(*args))
+        equal = ((_bit_equal(got.time, ref.time) & (got.material == ref.material))
+                 & _bit_equal(got.normal.x, ref.normal.x) & _bit_equal(got.normal.y, ref.normal.y)
+                 & _bit_equal(got.normal.z, ref.normal.z))
+        best = args[3]
+        # every lane reads its ray and incoming time and writes a hit (20 B);
+        # a lane the mesh does not improve reads the incoming normal and
+        # material, the others the winner's shade row (the tables)
+        kept = n - int((ref.time < best.time).sum())
+        n_bytes = n * (DENSE_RAY_BYTES + 4 + 20) + kept * 16 + tables
+        ops = _dense_ops(bvh, ray, t_min, best.time, torch.ones(n, dtype=torch.bool,
+                                                                 device=ray.origin.x.device),
+                         any_hit=False)
+        bound_ms, bound_by = _bound(n_bytes, ops)
+        detail = (f"{float((ref.time < best.time).float().mean()):.4f} nearer than the prims, "
+                  f"{float(ref.valid.float().mean()):.4f} hit")
+        ms, enqueue = _device_ms(lambda: kd.dense_closest_hit(*args))
+    bits = int(equal.sum())
+    print(f"[K-dense] {label}: {n} lanes x {tris} triangles in {bvh.leaves.shape[0]} rows "
+          f"({detail}): bit-equal lanes {bits} of {n}; kernel {ms:.4f} ms on the device (host "
+          f"enqueue {enqueue:.4f} ms), chain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms "
+          f"({bound_by}: {n_bytes} bytes, {ops} operations)")
+    return {"ms": ms, "host_ms": enqueue, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bit_equal_lanes": bits, "lanes": n}
+
+
+def phase_dense():
+    """`[K-dense]`: the lampshade's 12 triangles (3 leaf rows) on the
+    benchmark cells' own wavefronts, captured from one volumetric path
+    pass (128^2, 1 spp: the camera level, a bounce level, the NEE shadow
+    wavefront with the most live lanes, limit -1 on its gated ones) and
+    one point-beam render at its example's parameters (1M photons, 1 spp:
+    the shoot's first level, the camera pass's first closest-hit
+    wavefront, the occlusion recheck with its `skip` mask), each bit for
+    bit against the chain. Every call of both captures is replayed through
+    both and must be bit-equal too. Returns the two entries of the kernel
+    report: the path camera level (closest hit) and the recheck (any hit)
+    with the others as side fields; their launches are the paths' own
+    (`DENSE_LAUNCHES`), set by `main`."""
+    from rpt_tpu_torch import Buffer
+    from rpt_tpu_torch.intersect import dense_tri_hit_plain
+    from rpt_tpu_torch.ops import dense_tri_hit as kd
+    import torch_volumetric_beamphoton_lampshade as beam_ex
+    import torch_volumetric_pathtrace_lampshade as path_ex
+
+    path = path_ex.renderer("cuda", sample=1, seed=0)
+    beam = beam_ex.renderer("cuda", sample=1, seed=0)
+    path_calls, beam_calls = (
+        {name: [args for args, _ in c] for name, c in _recording("dense", K_DENSE, run).items()}
+        for run in (lambda: path.sample(1, Buffer(path.width_, path.height_, path.filter_)),
+                    lambda: beam.photon_point_query_beam_render(beam_ex.photons)))
+    every_call = 0
+    for calls in (path_calls, beam_calls):
+        for args in calls["dense_closest_hit"]:
+            got, ref = kd.dense_closest_hit(*args), dense_tri_hit_plain(*args)
+            every_call += int(not (bool(_bit_equal(got.time, ref.time).all())
+                                   and torch.equal(got.material, ref.material)
+                                   and all(bool(_bit_equal(getattr(got.normal, c),
+                                                           getattr(ref.normal, c)).all())
+                                           for c in "xyz")))
+        for args in calls["dense_any_hit"]:
+            every_call += int(not torch.equal(kd.dense_any_hit(*args),
+                                              kd.dense_any_hit_plain(*args)))
+    counts = {path: {name: len(c[name]) for name in K_DENSE}
+              for path, c in (("pass", path_calls), ("render", beam_calls))}
+    print(f"[K-dense] calls captured: a 128^2 volumetric path pass {counts['pass']}, a 1M-photon "
+          f"point-beam render at 1 spp {counts['render']}; calls not bit-equal {every_call}")
+    shoot = beam_calls["dense_closest_hit"][0]
+    camera = next((a for a in beam_calls["dense_closest_hit"]
+                   if a[1].origin.x.numel() == beam.width_ * beam.height_),
+                  beam_calls["dense_closest_hit"][-1])
+    recheck = max(beam_calls["dense_any_hit"], key=lambda a: a[1].origin.x.numel())
+    cases = {"path camera level": (False, path_calls["dense_closest_hit"][0]),
+             "path bounce level": (False, path_calls["dense_closest_hit"][1]),
+             "path shadow wavefront": (True, max(path_calls["dense_any_hit"], key=_live)),
+             "photon shoot level 0": (False, shoot),
+             "beam camera wavefront": (False, camera),
+             "beam occlusion recheck": (True, recheck)}
+    numbers = {label: _dense_case(label, any_hit, args)
+               for label, (any_hit, args) in cases.items()}
+    worst = min(v["bit_equal_lanes"] / v["lanes"] for v in numbers.values())
+    if every_call or worst < 1.0:
+        raise RuntimeError(f"K-dense differs from the chain: {every_call} calls, worst case "
+                           f"{worst:.6f} of lanes bit-equal")
+    entries = []
+    for name, main, sides, source in (
+            ("dense_closest_hit", "path camera level",
+             (("path_bounce", "path bounce level"), ("shoot", "photon shoot level 0"),
+              ("beam_camera", "beam camera wavefront")), "rpt_tpu/intersect.py:652"),
+            ("dense_any_hit", "beam occlusion recheck",
+             (("path_shadow", "path shadow wavefront"),), "rpt_tpu/intersect.py:767")):
+        entry = {"name": name, "route": "cuda", "source": "rpt_tpu_torch/csrc/dense_tri_hit.cu",
+                 "replaces": source, "max_abs_err": 0.0, "library_ms": None,
+                 **{k: numbers[main][k] for k in ("ms", "host_ms", "plain_ms", "bound_ms",
+                                                  "bound_by", "bit_equal_lanes", "lanes")}}
+        for prefix, label in sides:
+            entry.update(_side(prefix, numbers[label]),
+                         **{f"{prefix}_lanes": numbers[label]["lanes"]})
+        entries.append(entry)
+    return entries
+
+
 def main():
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU")
     parser.add_argument("--spp", type=int, default=None,
@@ -2458,6 +2694,7 @@ def main():
     kernels[1]["beambeam_launches"] = phase_beambeam(args.spp)
     phase_directional_sweep(r)
     phase_volpath(args.vol_spp)
+    dense = phase_dense()
     phase_golden_media()
     drivers = phase_drivers()
     k1["drivers_launches"], k2["drivers_launches"] = (drivers["bvh_closest_hit"],
@@ -2469,8 +2706,16 @@ def main():
         by_path = {path: counts[k["name"]] for path, counts in PRIM_LAUNCHES.items()}
         k.update(launches=by_path["fractal-spheres"], launches_by_path=by_path)
     kernels += prim
+    # K-dense's launches: the volumetric path's and the point-beam render's,
+    # the two benchmark cells' paths, and every path's beside them
+    for k in dense:
+        by_path = {path: counts[k["name"]] for path, counts in DENSE_LAUNCHES.items()}
+        k.update(launches=by_path["volpath"], render_launches=by_path["render"],
+                 launches_by_path=by_path)
+    kernels += dense
     print(f"[K-rng] launches by path: {RNG_LAUNCHES}")
     print(f"[K-prim] launches by path: {PRIM_LAUNCHES}")
+    print(f"[K-dense] launches by path: {DENSE_LAUNCHES}")
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

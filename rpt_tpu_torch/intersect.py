@@ -11,12 +11,14 @@ a query over every prim of the scene) on a CUDA tensor, and the per-type
 intersectors below, its spec, on a CPU tensor.
 
 Triangles: meshes of at most ``DENSE_TRI_ROWS`` packed leaf rows are
-tested densely (every row broadcast against the wavefront), as the JAX
-package does (`dense_tri_hit`). Bigger meshes go through the BVH
-traversal wrappers of `rpt_tpu_torch.ops.bvh_traverse`: the hand-written
-kernels (closest hit K1, any hit K2) on a CUDA tensor, and `_traverse`,
-the plain ordered short-stack traversal that is their spec, on a CPU
-tensor.
+tested densely (every row against the wavefront), as the JAX package does
+(`dense_tri_hit`), through the wrappers of `rpt_tpu_torch.ops.dense_tri_hit`:
+the hand-written kernel K-dense on a CUDA tensor, and `dense_tri_hit_plain`,
+the chain of torch ops that is its spec, on a CPU tensor. Bigger meshes go
+through the BVH traversal wrappers of `rpt_tpu_torch.ops.bvh_traverse`: the
+hand-written kernels (closest hit K1, any hit K2) on a CUDA tensor, and
+`_traverse`, the plain ordered short-stack traversal that is their spec, on
+a CPU tensor.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch
 from . import tracing
 from .dtypes import DTYPE, EPS, INF
 from .ops import bvh_traverse as kernels
+from .ops import dense_tri_hit as dense
 from .ops import prim_hit
 from .ray import Hit, Ray, closer
 from .vec import Affine, Mat3, Vec3, where
@@ -359,9 +362,10 @@ def _leaf_rows_test(leaf, count, ray: Ray, t_min, time, tri, bu, bv, bw):
     )
 
 
-def dense_tri_hit(bvh: BVHTables, ray: Ray, t_min, best: Hit) -> Hit:
+def dense_tri_hit_plain(bvh: BVHTables, ray: Ray, t_min, best: Hit) -> Hit:
     """Closest triangle hit for tiny meshes: every leaf row broadcast
-    against the wavefront, no traversal (`rpt_tpu/intersect.py:652`)."""
+    against the wavefront, no traversal (`rpt_tpu/intersect.py:652`). The
+    plain version of K-dense (`ops/dense_tri_hit.py`)."""
     n = ray.origin.x.shape[0]
     dev = ray.origin.x.device
     time = best.time
@@ -518,11 +522,12 @@ def _traverse(bvh: BVHTables, ray: Ray, t_min, limit, best_time, any_hit: bool, 
 
 def bvh_closest_hit(bvh: BVHTables, ray: Ray, t_min, best: Hit) -> Hit:
     """Closest triangle hit closer than ``best`` (`rpt_tpu/intersect.py:
-    699`, without the TPU's tiled and deferred engines): ``dense_tri_hit``
-    for tiny meshes, else the traversal (K1 on a CUDA tensor, `_traverse`
-    on a CPU tensor), then the shading attributes of the winner."""
+    699`, without the TPU's tiled and deferred engines): the dense test for
+    tiny meshes (K-dense on a CUDA tensor, `dense_tri_hit_plain` on a CPU
+    tensor), else the traversal (K1 on a CUDA tensor, `_traverse` on a CPU
+    tensor), then the shading attributes of the winner."""
     if bvh.leaves.shape[0] <= DENSE_TRI_ROWS:
-        return dense_tri_hit(bvh, ray, t_min, best)
+        return dense.dense_closest_hit(bvh, ray, t_min, best)
     time, tri, u, v, w = kernels.bvh_closest_hit(
         bvh, ray.origin.to_array().contiguous(), ray.dir.to_array().contiguous(), t_min,
         best.time.contiguous())
@@ -531,14 +536,15 @@ def bvh_closest_hit(bvh: BVHTables, ray: Ray, t_min, best: Hit) -> Hit:
 
 def bvh_any_hit(bvh: BVHTables, ray: Ray, t_min, limit, skip=None) -> torch.Tensor:
     """True where some triangle lies at t in [t_min, limit)
-    (`rpt_tpu/intersect.py:767`): the early-exit occlusion query (K2 on a
-    CUDA tensor, `_traverse(any_hit=True)` on a CPU tensor). Lanes in
-    ``skip`` are already known occluded: the traversal leaves them out
-    (their result is False), the dense test does not."""
+    (`rpt_tpu/intersect.py:767`): the early-exit occlusion query (for tiny
+    meshes the dense test, K-dense on a CUDA tensor; else K2 on a CUDA
+    tensor, `_traverse(any_hit=True)` on a CPU tensor). Lanes in ``skip``
+    are already known occluded: both leave them out (their result is
+    False)."""
+    if bvh.leaves.shape[0] <= DENSE_TRI_ROWS:
+        return dense.dense_any_hit(bvh, ray, t_min, limit, skip)
     n = ray.origin.x.shape[0]
     dev = ray.origin.x.device
-    if bvh.leaves.shape[0] <= DENSE_TRI_ROWS:
-        return dense_tri_hit(bvh, ray, t_min, Hit.none((n,), dev)).time < limit
     limit = torch.as_tensor(limit, dtype=DTYPE, device=dev).expand(n).contiguous()
     return kernels.bvh_any_hit(bvh, ray.origin.to_array().contiguous(),
                                ray.dir.to_array().contiguous(), t_min, limit,
@@ -559,8 +565,7 @@ def _prim_best(scene, tables, ray: Ray, t_min) -> Hit:
 def closest_hit(scene, tables, ray: Ray, t_min=None) -> Hit:
     """Masked min over all primitive batches and the triangles — the
     wavefront analog of `Renderer::get_closest_hit` (renderer.rs:416-425).
-    Its span, ``intersect.closest``, holds K-prim and K1 or
-    `dense_tri_hit`'s chain."""
+    Its span, ``intersect.closest``, holds K-prim and K1 or K-dense."""
     if t_min is None:
         t_min = scene.t_min
     with tracing.span("intersect.closest"):
@@ -583,9 +588,8 @@ def prim_occluded(scene, tables, ray: Ray, limit, t_min=None) -> torch.Tensor:
 def occluded(scene, tables, ray: Ray, limit, t_min=None) -> torch.Tensor:
     """True where any geometry lies at t in [t_min, limit) along the ray —
     the shadow query (lanes with limit -1 are never occluded). Lanes an
-    analytic primitive already occludes skip the mesh traversal. Its span,
-    ``intersect.occluded``, holds K-prim and K2 or `dense_tri_hit`'s
-    chain."""
+    analytic primitive already occludes skip the mesh test. Its span,
+    ``intersect.occluded``, holds K-prim and K2 or K-dense."""
     if t_min is None:
         t_min = scene.t_min
     with tracing.span("intersect.occluded"):

@@ -75,6 +75,9 @@ _SIGNATURES = {
     # params (a PrimParams by reference, launched by value), stream
     "rpt_prim_closest_hit": [_P, _P],
     "rpt_prim_any_hit": [_P, _P],
+    # params (a DenseParams by reference, launched by value), stream
+    "rpt_dense_closest_hit": [_P, _P],
+    "rpt_dense_any_hit": [_P, _P],
 }
 
 

@@ -109,17 +109,37 @@ def _check_rows(name: str, prims: PrimRows) -> None:
         raise ValueError(f"{name}: {rows.shape[0]} rows; the kernel indexes them with int32")
 
 
-def _lanes(name: str, prims: PrimRows, ray: Ray):
+def _lanes(name: str, rows: torch.Tensor, ray: Ray):
     """The ray's six components broadcast to one lane shape and flattened
-    (views where they can be), and that shape."""
+    (views where they can be), and that shape; they must be float32 on the
+    device of the table ``rows``."""
     comps = torch.broadcast_tensors(ray.origin.x, ray.origin.y, ray.origin.z,
                                     ray.dir.x, ray.dir.y, ray.dir.z)
     for c in comps:
         if c.dtype != DTYPE:
             raise ValueError(f"{name}: ray components must be float32, got {c.dtype}")
-        if c.device != prims.rows.device:
-            raise ValueError(f"{name}: the ray is on {c.device}, the rows on {prims.rows.device}")
+        if c.device != rows.device:
+            raise ValueError(f"{name}: the ray is on {c.device}, the rows on {rows.device}")
     return [c.reshape(-1) for c in comps], comps[0].shape
+
+
+def _lane_tensor(name: str, what: str, x, dtype, shape, dev) -> torch.Tensor:
+    """``x`` (a number or a tensor that broadcasts against the lanes) as a
+    flat view over the lanes, of ``dtype`` on ``dev``."""
+    if isinstance(x, torch.Tensor) and (x.dtype != dtype or x.device != dev):
+        raise ValueError(f"{name}: {what} must be {dtype} on {dev}, got {x.dtype} on {x.device}")
+    return torch.as_tensor(x, dtype=dtype, device=dev).expand(shape).reshape(-1)
+
+
+def _on_card(name: str, comps, rows: torch.Tensor | None = None) -> None:
+    """Refuse lanes off the card or past int32; ``rows``, where given, must
+    be 16-byte aligned (the kernel reads them as float4)."""
+    if comps[0].device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {comps[0].device}")
+    if rows is not None and rows.data_ptr() % 16:
+        raise ValueError(f"{name}: the rows must be 16-byte aligned")
+    if comps[0].shape[0] >= 1 << 31:
+        raise ValueError(f"{name}: {comps[0].shape[0]} lanes; the kernel counts them in int32")
 
 
 # ---------------------------------------------------------------------------
@@ -337,7 +357,7 @@ def prim_hit_flat_plain(prims: PrimRows, ray: Ray, t_min, limit=None):
     the best entering their batch; then the winner's world normal and
     material. A `Hit`, or with ``limit`` the booleans ``best < limit``."""
     _check_rows("prim_hit_flat_plain", prims)
-    comps, shape = _lanes("prim_hit_flat_plain", prims, ray)
+    comps, shape = _lanes("prim_hit_flat_plain", prims.rows, ray)
     ray = Ray(Vec3(*comps[:3]), Vec3(*comps[3:]))
     n, dev = comps[0].shape[0], prims.rows.device
     ends = list(accumulate(prims.counts))
@@ -408,25 +428,16 @@ def _params(prims: PrimRows, comps, t_min) -> _PrimParams:
     return p
 
 
-def _on_card(name: str, prims: PrimRows, comps) -> None:
-    if comps[0].device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {comps[0].device}")
-    if prims.rows.data_ptr() % 16:
-        raise ValueError(f"{name}: the rows must be 16-byte aligned")
-    if comps[0].shape[0] >= 1 << 31:
-        raise ValueError(f"{name}: {comps[0].shape[0]} lanes; the kernel counts them in int32")
-
-
 def prim_closest_hit(prims: PrimRows, ray: Ray, t_min) -> Hit:
     """The nearest prim hit per ray in [t_min, inf): time (inf on a miss),
     world normal (zero on a miss) and material (-1 on a miss), as
     `_prim_best`. CPU rays take `prim_closest_hit_plain`; CUDA rays launch
     K-prim once."""
     _check_rows("prim_closest_hit", prims)
-    comps, shape = _lanes("prim_closest_hit", prims, ray)
+    comps, shape = _lanes("prim_closest_hit", prims.rows, ray)
     if comps[0].device.type == "cpu":
         return prim_closest_hit_plain(prims, ray, t_min)
-    _on_card("prim_closest_hit", prims, comps)
+    _on_card("prim_closest_hit", comps, prims.rows)
     n, dev = comps[0].shape[0], comps[0].device
     out_t = torch.empty(n, dtype=DTYPE, device=dev)
     out_n = torch.empty((3, n), dtype=DTYPE, device=dev)
@@ -450,15 +461,12 @@ def prim_any_hit(prims: PrimRows, ray: Ray, t_min, limit) -> torch.Tensor:
     `prim_any_hit_plain`; CUDA rays launch K-prim once, which stops a lane
     at its first prim before ``limit``."""
     _check_rows("prim_any_hit", prims)
-    comps, shape = _lanes("prim_any_hit", prims, ray)
+    comps, shape = _lanes("prim_any_hit", prims.rows, ray)
     if comps[0].device.type == "cpu":
         return prim_any_hit_plain(prims, ray, t_min, limit)
-    _on_card("prim_any_hit", prims, comps)
+    _on_card("prim_any_hit", comps, prims.rows)
     n, dev = comps[0].shape[0], comps[0].device
-    if isinstance(limit, torch.Tensor) and (limit.dtype != DTYPE or limit.device != dev):
-        raise ValueError(f"prim_any_hit: limit must be float32 on {dev}, got {limit.dtype} on "
-                         f"{limit.device}")
-    limit = torch.as_tensor(limit, dtype=DTYPE, device=dev).expand(shape).reshape(-1)
+    limit = _lane_tensor("prim_any_hit", "limit", limit, DTYPE, shape, dev)
     out = torch.empty(n, dtype=torch.bool, device=dev)
     if n:
         p = _params(prims, comps, t_min)

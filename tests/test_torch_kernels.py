@@ -365,7 +365,7 @@ def test_plain_traversal_matches_brute_force():
     every lane (a soup has no shared edges to tie on), and the same any-hit
     flags. The wrappers take the plain version for CPU tensors and launch
     nothing."""
-    from rpt_tpu_torch.intersect import dense_tri_hit
+    from rpt_tpu_torch.intersect import dense_tri_hit_plain
     from rpt_tpu_torch.ray import Hit, Ray
     from rpt_tpu_torch.vec import Vec3
 
@@ -380,7 +380,7 @@ def test_plain_traversal_matches_brute_force():
     before = (bvh_closest_hit.launches, bvh_any_hit.launches)
     t, tri, *_ = bvh_closest_hit(bvh, o, d, 1e-4, inf)
     ray = Ray(Vec3(o[:, 0], o[:, 1], o[:, 2]), Vec3(d[:, 0], d[:, 1], d[:, 2]))
-    dense = dense_tri_hit(bvh, ray, 1e-4, Hit.none((n,)))
+    dense = dense_tri_hit_plain(bvh, ray, 1e-4, Hit.none((n,)))
     assert 0.3 < torch.isfinite(t).float().mean() < 0.95
     assert torch.equal(t, dense.time)
     limit = torch.tensor(rng.uniform(-0.5, 2.5, n), dtype=torch.float32)
