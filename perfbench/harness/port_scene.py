@@ -1,6 +1,13 @@
 """A scene description (`perfbench.scenes`) handed to the port through
 its public scene API: the system under test gets the same inputs as the
-plain reference, and nothing else."""
+plain reference, and nothing else.
+
+`build_renderer` here is the default builder, for descriptions in its
+vocabulary (diffuse, specular and light materials; meshes from arrays,
+planes, cubes and spheres; ambient and sphere lights; a homogeneous
+medium). A configuration whose scene needs more defines its own
+``build_renderer(desc, seed, device)`` in its scene module, and
+`builder` finds it there."""
 
 from __future__ import annotations
 
@@ -42,6 +49,13 @@ def camera(rpt, cam: dict):
                                   la["fov"])
     return rpt.Camera(eye=tuple(cam["eye"]), direction=tuple(cam["direction"]),
                       up=tuple(cam["up"]), fov=cam["fov"])
+
+
+def builder(scene):
+    """The function that builds the port's `Renderer` for the scene module
+    ``scene`` (`perfbench/scenes/<config>.py`): the module's own
+    ``build_renderer`` where it defines one, else `build_renderer`."""
+    return getattr(scene, "build_renderer", build_renderer)
 
 
 def build_renderer(desc: dict, seed: int, device: str):

@@ -13,7 +13,9 @@ the cell's own shape) is timed as ``setup_s``; the traffic then runs for
 per-layer metrics. After the window the program's state is freed and the
 plain reference (`perfbench/reference`) recomputes the compared answers.
 The last line of standard output is the result, one JSON object; the
-numbers compared are the last lines of standard error.
+numbers compared are the last lines of standard error. The port's
+`Renderer` is built by the scene module's own ``build_renderer`` where it
+has one, else by `port_scene.build_renderer` (`port_scene.builder`).
 
 The run needs a card (`torch.cuda.is_available()`), and neither JAX nor
 the JAX package may be loaded: either fault ends it with no result.
@@ -104,8 +106,9 @@ def execute(argv=None, device: str = "cuda", overrides: dict | None = None,
                      f"{torch.cuda.device_count()} found", 2), None
 
     settings = config["settings"][params["settings"]] if params.get("settings") else None
-    desc = spec.module("scenes", work["config"]).describe(config, settings, args.seed)
-    renderer = port_scene.build_renderer(desc, args.seed, device)
+    scene = spec.module("scenes", work["config"])
+    desc = scene.describe(config, settings, args.seed)
+    renderer = port_scene.builder(scene)(desc, args.seed, device)
     renderer.compiled  # the scene compiled: SAH build, packing, upload
     loop.warm_up(renderer, desc, params)
     captured = {}

@@ -27,10 +27,14 @@ from perfbench.reference import photon as ref_photon  # noqa: E402
 from rpt_tpu_torch.vec import Vec3  # noqa: E402
 
 # each cell at a size a test run holds: the lampshade to 12x12 pixels for
-# its passes, to 10x8 pixels, 3,000 photons and 2 samples for its renders
+# its passes, to 10x8 pixels, 3,000 photons and 2 samples for its renders;
+# the pegasus to 2,000 of its triangles (`linspace` rows), 16x16 pixels and
+# 4 bounces
 TINY = {"lampshade.pathtrace": {"width": 12, "height": 12},
         "lampshade.beamphoton": {"width": 10, "height": 8,
-                                 "settings": {"beamphoton": {"photons": 3000, "samples": 2}}}}
+                                 "settings": {"beamphoton": {"photons": 3000, "samples": 2}}},
+        "pegasus.passes": {"width": 16, "height": 16, "max_bounces": 4,
+                           "mesh": {"triangles": 2000}}}
 CELLS = sorted(TINY)
 # the dragon's configuration (its cell waits for a program fix, PERF.md):
 # the stand-in cut to 1,152 triangles and 24x16 pixels
@@ -43,6 +47,11 @@ def _desc(name, seed):
     params = cell["traffic"]
     settings = config["settings"][params["settings"]] if params.get("settings") else None
     return spec.module("scenes", cell["workload"]["config"]).describe(config, settings, seed), cell
+
+
+def _renderer(config_name, desc, seed):
+    """The port's renderer for ``desc``, built as `run.py` builds it."""
+    return port_scene.builder(spec.module("scenes", config_name))(desc, seed, "cpu")
 
 
 def _passes(renderer, desc, seed, n):
@@ -69,17 +78,20 @@ def _run(name, capsys, seed=2_147_483_659, seconds=1.0):
     return result
 
 
-@pytest.mark.parametrize("name", ["dragon", "lampshade.pathtrace"])
+@pytest.mark.parametrize("name", ["dragon", "lampshade.pathtrace", "pegasus.passes"])
 def test_path_reference_matches_the_ports_cpu_path(name):
     seed = 5_000_000_017
     if name == "dragon":
         config = run._merge(spec.load_json(CHECKOUT, "perfbench", "configs", "dragon.json"), DRAGON)
         desc = spec.module("scenes", "dragon").describe(config, None, seed)
+        config_name, radiance = "dragon", ref.radiance
     else:
-        desc, _ = _desc(name, seed)
-    renderer = port_scene.build_renderer(desc, seed, "cpu")
+        desc, cell = _desc(name, seed)
+        config_name = cell["workload"]["config"]
+        radiance = spec.module("reference", cell["check"]["reference"]).radiance
+    renderer = _renderer(config_name, desc, seed)
     program, pixels, samples = _passes(renderer, desc, seed, 3)
-    reference = ref.radiance(desc, seed, pixels, samples, "cpu")
+    reference = radiance(desc, seed, pixels, samples, "cpu")
     lit = (reference != 0).any(-1)
     assert lit.mean() > 0.05
     np.testing.assert_allclose(program, reference, rtol=1e-5, atol=1e-7)
@@ -88,7 +100,7 @@ def test_path_reference_matches_the_ports_cpu_path(name):
 def test_photon_reference_matches_the_ports_cpu_path():
     seed = 5_000_000_017
     desc, _ = _desc("lampshade.beamphoton", seed)
-    renderer = port_scene.build_renderer(desc, seed, "cpu")
+    renderer = _renderer("lampshade", desc, seed)
     renders = spec.module("traffic", "renders")
     renders._configure(renderer, desc["render"])
     renders._render(renderer, desc["render"])

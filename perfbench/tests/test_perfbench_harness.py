@@ -18,7 +18,7 @@ CHECKOUT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__fil
 sys.path.insert(0, CHECKOUT)
 
 from perfbench import run  # noqa: E402
-from perfbench.harness import spec, stats, trace, traffic  # noqa: E402
+from perfbench.harness import port_scene, spec, stats, trace, traffic  # noqa: E402
 from perfbench.rooflines import k1, ksweep, peaks  # noqa: E402
 
 BENCH = spec.benchmark()
@@ -43,6 +43,7 @@ def test_every_file_of_a_cell_is_found_by_name(name):
 
 
 @pytest.mark.parametrize("loop,reference,fn", [("passes", "path", "radiance"),
+                                               ("passes", "surface", "radiance"),
                                                ("renders", "photon", "render_pixels")])
 def test_a_loop_and_a_reference_load_by_name(loop, reference, fn):
     mod = spec.module("traffic", loop)
@@ -50,6 +51,14 @@ def test_a_loop_and_a_reference_load_by_name(loop, reference, fn):
     assert callable(getattr(spec.module("reference", reference), fn))
     with pytest.raises(FileNotFoundError):
         spec.module("traffic", "no_such_loop")
+
+
+@pytest.mark.parametrize("config,own", [("pegasus", True), ("lampshade", False),
+                                        ("dragon", False)])
+def test_a_scene_module_builds_the_renderer_where_it_defines_a_builder(config, own):
+    scene = spec.module("scenes", config)
+    build = port_scene.builder(scene)
+    assert build is (scene.build_renderer if own else port_scene.build_renderer)
 
 
 def test_every_configuration_file_is_its_own_and_under_paths():
@@ -69,7 +78,14 @@ def test_metrics_apply_to_the_cells_they_list():
     cell = spec.cell(BENCH, "lampshade.beamphoton")
     names = {m["name"] for m in cell["end_to_end"] + cell["per_layer"]}
     assert {"render_s", "idle_pct.render", "photon.shoot_s", "photon.trace_s",
-            "ksweep.roofline_pct", "setup_s"} == names
+            "ksweep.roofline_pct", "setup_s", "photon.shoot_level_ms",
+            "idle.in_shoot_pct"} == names
+    cell = spec.cell(BENCH, "pegasus.passes")
+    names = {m["name"] for m in cell["end_to_end"] + cell["per_layer"]}
+    assert {"samples_per_s", "setup_s", "idle_pct.passes", "path.kernels_per_pass",
+            "intersect.device_ms_per_pass", "intersect.span_device_ms_per_pass",
+            "frontend.host_ms_per_pass", "path.host_ms_per_level", "rng.launches_per_pass",
+            "k1.roofline_pct"} == names
 
 
 def test_union_of_intervals():
