@@ -374,7 +374,7 @@ def volume_estimate_point(scene, tables, pmap: PhotonMapData, medium, ray: Ray, 
 
     if pmap.volume_grid is not None and pmap.volume_grid.n > 0:
         kv = gather_size_volume
-        with tracing.span("photon.gather"):
+        with tracing.span("photon.gather_volume"):
             idx, d2, valid = knn_query(pmap.volume_grid, collision.to_array().contiguous(), kv)
         max_d2 = torch.where(valid, d2, 0.0).max(dim=1).values
         rows = pmap.volume[idx.reshape(-1)]  # (n*kv, ROW), lane-major

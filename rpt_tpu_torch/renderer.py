@@ -244,11 +244,12 @@ class Renderer:
             torch.cuda.synchronize(self.device)
 
     @contextlib.contextmanager
-    def _phase(self, name: str, seconds: dict):
+    def _phase(self, name: str, seconds: dict, lanes=None):
         """A phase of `photon_render`: ``seconds[name]`` is the host time
         from its start to the device sync at its end, and the span
-        ``photon.<name>`` encloses both readings."""
-        with tracing.span(f"photon.{name}"):
+        ``photon.<name>`` (with ``lanes``, a count the host holds) encloses
+        both readings."""
+        with tracing.span(f"photon.{name}", lanes):
             t0 = time.perf_counter()
             yield
             self._sync()
@@ -283,7 +284,7 @@ class Renderer:
             self.photon_counts = {"surface": n_s, "volume": n_v, "dropped": photons.dropped}
 
             print("Building photon maps")
-            with self._phase("build", seconds):
+            with self._phase("build", seconds, n_s + n_v):  # the deposits it sorts
                 pmap = ph.build_photon_map(scene, scene.tables, photons.surface, photons.volume,
                                            kind, self.gather_size_, self.gather_size_volume_,
                                            np.random.default_rng(self.seed_ + 17))
