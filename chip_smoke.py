@@ -92,6 +92,12 @@ per source, in parallel) and drives every ported path end to end:
   and the chain of torch ops, bit for bit, and six of the wavefronts
   (camera, bounce and shadow levels; the shoot, the camera pass and the
   occlusion recheck) timed beside the chain and their bound;
+- `[K-shoot]` (`csrc/photon_shoot.cu`, a shoot level's interaction):
+  the skybox shoot's first chunk of 500,000 photons level by level, its
+  level 0 and a late level held bit for bit to the chain
+  (`shoot_level_plain`) and timed beside it and their bound; its calls a
+  render are those the skybox and point-beam renders made (every path
+  that shoots photons on the card must launch it);
 - the three media goldens (volumetric path, photon map, beam-beam);
 - 17 drivers that no other phase renders (`[drivers]`), each built by its
   ``renderer("cuda")`` and cut to a quarter of its size and 2 spp.
@@ -281,6 +287,7 @@ def phase_render(spp_cap):
     rng = _read_rng("render", shoots=True)
     prims = _read_prim("render")
     dense = _read_dense("render", required=True)
+    shoot = _read_shoot("render", required=True)
     s, c = r.phase_seconds, r.photon_counts
     finite = bool(np.isfinite(r._last_buffer.raw()).all())
     note = "" if spp == ex.sample else f" (spp lowered from {ex.sample} to {spp})"
@@ -288,7 +295,7 @@ def phase_render(spp_cap):
           f"{s['shoot']:.3f} s, build {s['build']:.3f} s, trace {s['trace']:.3f} s; "
           f"surface {c['surface']}, volume {c['volume']}, dropped {c['dropped']}; "
           f"image mean {img.mean():.4f}, finite {finite}; launches {launches}, K-rng {rng}, "
-          f"K-prim {prims}, K-dense {dense}")
+          f"K-prim {prims}, K-dense {dense}, K-shoot {shoot}")
     if not finite or img.shape != (r.height_, r.width_, 3) or img.mean() <= 0:
         raise RuntimeError("render output is not a finite, non-black image of the right shape")
     for name, n in launches.items():
@@ -1264,9 +1271,10 @@ def _zero_counts():
     from rpt_tpu_torch.accel.knn import knn_query, knn_radius
     from rpt_tpu_torch.ops import dense_tri_hit, prim_hit, threefry
     from rpt_tpu_torch.ops.bvh_traverse import bvh_any_hit, bvh_closest_hit
+    from rpt_tpu_torch.ops.photon_shoot import shoot_level
     from rpt_tpu_torch.ops.sphere_sweep import sphere_sweep
 
-    for wrapper in (knn_query, knn_radius, sphere_sweep, bvh_closest_hit, bvh_any_hit,
+    for wrapper in (knn_query, knn_radius, sphere_sweep, bvh_closest_hit, bvh_any_hit, shoot_level,
                     *(getattr(threefry, name) for name in RNG_WRAPPERS),
                     *(getattr(prim_hit, name) for name in K_PRIM),
                     *(getattr(dense_tri_hit, name) for name in K_DENSE)):
@@ -1316,10 +1324,31 @@ def _read_dense(path: str, required: bool = False) -> dict:
     return counts
 
 
+# K-shoot's launches on every path that made any, by path (`_read_shoot`)
+SHOOT_LAUNCHES: dict = {}
+
+
+def _read_shoot(path: str, required: bool = False) -> dict:
+    """Record K-shoot's launches of ``path`` since `_zero_counts` where it
+    made any (adding to what an earlier run of the same path recorded);
+    with ``required`` (a path that shoots photons on the card), fail where
+    it made none: every shoot level on the card takes K-shoot."""
+    from rpt_tpu_torch.ops.photon_shoot import shoot_level
+
+    counts = {"shoot_level": shoot_level.launches}
+    if required and counts["shoot_level"] <= 0:
+        raise RuntimeError(f"the {path} path shot photons but never launched K-shoot")
+    if counts["shoot_level"]:
+        seen = SHOOT_LAUNCHES.setdefault(path, {"shoot_level": 0})
+        seen["shoot_level"] += counts["shoot_level"]
+    return counts
+
+
 def _read_counts(path: str, shoots: bool = False) -> dict:
-    """The launches of K-knn, K-sweep, K1, K2, K-prim and K-dense since
-    `_zero_counts`; K-rng's are recorded for ``path`` by `_read_rng`,
-    K-prim's also by `_read_prim`, K-dense's by `_read_dense`."""
+    """The launches of K-knn, K-sweep, K1, K2, K-prim, K-dense and K-shoot
+    since `_zero_counts`; K-rng's are recorded for ``path`` by `_read_rng`,
+    K-prim's also by `_read_prim`, K-dense's by `_read_dense`, K-shoot's by
+    `_read_shoot` (required where ``shoots``)."""
     from rpt_tpu_torch.accel.knn import knn_query, knn_radius
     from rpt_tpu_torch.ops.bvh_traverse import bvh_any_hit, bvh_closest_hit
     from rpt_tpu_torch.ops.sphere_sweep import sphere_sweep
@@ -1328,14 +1357,15 @@ def _read_counts(path: str, shoots: bool = False) -> dict:
     return {"knn_query": knn_query.launches, "knn_query_by_k": dict(knn_query.by_k),
             "knn_radius": knn_radius.launches, "sphere_sweep": sphere_sweep.launches,
             "bvh_closest_hit": bvh_closest_hit.launches, "bvh_any_hit": bvh_any_hit.launches,
-            **_read_dense(path), **_read_prim(path)}
+            **_read_dense(path), **_read_prim(path), **_read_shoot(path, shoots)}
 
 
 def _other_launches(launches: dict, allowed=()) -> dict:
     """The launches of ``launches`` by kernels other than K-prim, K-dense
-    (a scene's small meshes) and ``allowed`` that were made."""
+    (a scene's small meshes), K-shoot (a photon shoot's levels) and
+    ``allowed`` that were made."""
     return {name: n for name, n in launches.items()
-            if n and name not in (*K_PRIM, *K_DENSE, *allowed)}
+            if n and name not in (*K_PRIM, *K_DENSE, "shoot_level", *allowed)}
 
 
 def _check_image(label, r, img):
@@ -2619,6 +2649,115 @@ def phase_dense():
     return entries
 
 
+# K-shoot's bytes a lane: its ray (24), power (12), key row (16) and hit
+# (time, normal, material: 20) in; out, a survivor's ray, power and key row
+# (52) and a deposit row (48). Its hashes, counted from
+# `csrc/photon_shoot.cu` `interact`: the level's fold; in a medium, the
+# free flight's two folds and draw; a volume event's roulette (a fold, a
+# draw) and phase (two folds, two draws); a surface event's roulette (a
+# fold, a draw) and lobe (three folds, three draws).
+SHOOT_IN_BYTES, SHOOT_SURVIVOR_BYTES, SHOOT_ROW_BYTES = 72, 52, 48
+SHOOT_HASHES = {"level": 1, "flight": 3, "volume": 6, "surface": 8}
+# the skybox shoot's late level timed beside level 0
+SHOOT_LATE_LEVEL = 12
+
+
+def _shoot_case(label: str, chunk, hit, medium, mats) -> dict:
+    """K-shoot on the chunk's next level against `shoot_level_plain` on the
+    same state and hit: the level's deposit rows and the survivors bit for
+    bit, K-shoot's device time (its three kernels, `_device_ms`; a call
+    rewrites the same outputs) and the host's enqueue, the wall of the
+    whole `shoot_level` (enqueue and the survivors' read), the chain's time
+    and the bound. Runs the level."""
+    from rpt_tpu_torch import sampling
+    from rpt_tpu_torch.ops import photon_shoot as ks
+
+    level, n = chunk.level, chunk.lanes
+    ray, power, keys = chunk.ray(), chunk.power(), sampling.key_path(chunk.keys().clone())
+
+    def plain():
+        return ks.shoot_level_plain(ray, power, keys, hit, level, medium, mats)
+
+    plain()  # a warm-up: the chain's first call in a process loads its kernels
+    (s, v, ray_p, power_p, keys_p), plain_ms = _events_ms(plain)
+    ms, enqueue = _device_ms(lambda: ks._launch(chunk, hit, level))
+    s_off, v_off = chunk.offsets[level, :2].tolist()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ks.shoot_level(chunk, hit, level)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    s_end, v_end = chunk.offsets[level + 1, :2].tolist()
+    got = chunk.ray()
+    equal = (torch.equal(chunk.surface[s_off:s_end], s)
+             and torch.equal(chunk.volume[v_off:v_end], v)
+             and all(torch.equal(getattr(a, c), getattr(b, c)) for a, b in
+                     ((got.origin, ray_p.origin), (got.dir, ray_p.dir), (chunk.power(), power_p))
+                     for c in "xyz")
+             and torch.equal(chunk.keys(), keys_p.base))
+    survivors, rows = chunk.lanes, s.shape[0] + v.shape[0]
+    valid = int(hit.valid.sum())
+    hashes = (n * (SHOOT_HASHES["level"] + (SHOOT_HASHES["flight"] if medium is not None else 0))
+              + v.shape[0] * SHOOT_HASHES["volume"]
+              + max(0, valid - v.shape[0]) * SHOOT_HASHES["surface"])
+    n_bytes = n * SHOOT_IN_BYTES + survivors * SHOOT_SURVIVOR_BYTES + rows * SHOOT_ROW_BYTES
+    bound_ms, bound_by = max(_bound(n_bytes, 0), _bound(0, hashes * HASH_OPS, INT32_OPS_PER_S))
+    print(f"[K-shoot] {label}: {n} lanes ({s.shape[0]} surface, {v.shape[0]} volume deposits, "
+          f"{survivors} survivors): bit-equal {equal}; kernel {ms:.4f} ms on the device (host "
+          f"enqueue {enqueue:.4f} ms, the level's call with its read {wall_ms:.4f} ms), chain "
+          f"{plain_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by}: {n_bytes} bytes, {hashes} "
+          f"hashes)")
+    return {"ms": ms, "host_ms": enqueue, "wall_ms": wall_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bit_equal": equal, "lanes": n}
+
+
+def phase_shoot():
+    """`[K-shoot]`: the skybox shoot's first chunk (500,000 photons of its
+    10M, `examples/torch_skybox_photons.py`), level by level through
+    K-shoot, with level 0 and level `SHOOT_LATE_LEVEL` timed and held bit
+    for bit to the chain (`_shoot_case`). Its launches a render are the
+    skybox render's (`phase_skybox_photons`) and the point-beam
+    lampshade's (`phase_render`), as `_read_shoot` recorded them. Returns
+    the kernel report's entry."""
+    from rpt_tpu_torch import sampling
+    from rpt_tpu_torch.integrators import photon as ph
+    from rpt_tpu_torch.intersect import closest_hit
+    from rpt_tpu_torch.ops import photon_shoot as ks
+    import torch_skybox_photons as sky_ex
+
+    r = sky_ex.renderer("cuda")
+    scene, tables = r.compiled, r.compiled.tables
+    medium, mats = scene.media[0], tables["materials"]
+    li, _ = ph._find_object_light(scene)
+    chunk_n = 1 << 19
+    nchunks = -(-sky_ex.PHOTONS // chunk_n)
+    n = -(-sky_ex.PHOTONS // nchunks)
+    key = sampling.fold_in(sampling.key(r.seed_, "cuda"), 1)
+    ray, power, keys = ph._emit(scene, tables, li, r.watts_ / (nchunks * n), n,
+                                sampling.fold_in(key, 0))
+    chunk = ks.ShootChunk(ray, power, keys.base, mats, medium, 48, 4 * n, 10 * n)
+    cases = {}
+    while chunk.lanes:
+        hit = closest_hit(scene, tables, chunk.ray())
+        level = chunk.level
+        if level in (0, SHOOT_LATE_LEVEL):
+            cases[level] = _shoot_case(f"skybox shoot level {level}", chunk, hit, medium, mats)
+        else:
+            ks.shoot_level(chunk, hit, chunk.level)
+    late = cases.get(SHOOT_LATE_LEVEL, cases[0])
+    if not all(c["bit_equal"] for c in cases.values()):
+        raise RuntimeError(f"K-shoot differs from the chain: {cases}")
+    sky, beam = (SHOOT_LAUNCHES[path]["shoot_level"] for path in ("skybox-photons", "render"))
+    print(f"[K-shoot] calls a render: {sky} in the {sky_ex.PHOTONS}-photon skybox render, {beam} "
+          f"in the point-beam lampshade's; by path {SHOOT_LAUNCHES}")
+    return {"name": "shoot_level", "route": "cuda", "source": "rpt_tpu_torch/csrc/photon_shoot.cu",
+            "replaces": "rpt_tpu/integrators/photon.py:137", "max_abs_err": 0.0,
+            "library_ms": None,
+            **{k: cases[0][k] for k in ("ms", "host_ms", "wall_ms", "plain_ms", "bound_ms",
+                                        "bound_by", "lanes")},
+            **_side("late", late), "late_lanes": late["lanes"], "late_level": SHOOT_LATE_LEVEL,
+            "launches": sky, "beam_launches": beam, "launches_by_path": dict(SHOOT_LAUNCHES)}
+
+
 def main():
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU")
     parser.add_argument("--spp", type=int, default=None,
@@ -2695,6 +2834,7 @@ def main():
     phase_directional_sweep(r)
     phase_volpath(args.vol_spp)
     dense = phase_dense()
+    shoot = phase_shoot()
     phase_golden_media()
     drivers = phase_drivers()
     k1["drivers_launches"], k2["drivers_launches"] = (drivers["bvh_closest_hit"],
@@ -2713,9 +2853,11 @@ def main():
         k.update(launches=by_path["volpath"], render_launches=by_path["render"],
                  launches_by_path=by_path)
     kernels += dense
+    kernels.append(shoot)
     print(f"[K-rng] launches by path: {RNG_LAUNCHES}")
     print(f"[K-prim] launches by path: {PRIM_LAUNCHES}")
     print(f"[K-dense] launches by path: {DENSE_LAUNCHES}")
+    print(f"[K-shoot] launches by path: {SHOOT_LAUNCHES}")
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

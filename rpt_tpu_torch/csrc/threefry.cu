@@ -14,7 +14,8 @@
 // schedule (k1, k2, k1 ^ k2 ^ 0x1BD11BDA), the rotations (13, 15, 26, 6)
 // and (17, 29, 16, 24) in turn, a key injection after every four rounds.
 // It runs on native uint32 arithmetic (wrap-around is the plain version's
-// `& 0xFFFFFFFF`), rotations by __funnelshift_l. Keys are int64 words
+// `& 0xFFFFFFFF`), rotations by __funnelshift_l, in `threefry.cuh`, which
+// K-shoot (`photon_shoot.cu`) includes too. Keys are int64 words
 // holding uint32 values, as the port keeps them; the kernels read the low
 // 32 bits of each word and write the outputs zero-extended.
 //
@@ -59,44 +60,11 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "threefry.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ void mix(uint32_t& x1, uint32_t& x2, int r) {
-    x1 += x2;
-    x2 = __funnelshift_l(x2, x2, r);
-    x2 ^= x1;
-}
-
-__device__ __forceinline__ void mix4(uint32_t& x1, uint32_t& x2, int a, int b, int c, int d) {
-    mix(x1, x2, a);
-    mix(x1, x2, b);
-    mix(x1, x2, c);
-    mix(x1, x2, d);
-}
-
-// threefry2x32 of the counter (x1, x2) under the key (k1, k2), in place
-__device__ __forceinline__ void threefry(uint32_t k1, uint32_t k2, uint32_t& x1, uint32_t& x2) {
-    const uint32_t k3 = k1 ^ k2 ^ 0x1BD11BDAu;
-    x1 += k1;
-    x2 += k2;
-    mix4(x1, x2, 13, 15, 26, 6);
-    x1 += k2;
-    x2 += k3 + 1u;
-    mix4(x1, x2, 17, 29, 16, 24);
-    x1 += k3;
-    x2 += k1 + 2u;
-    mix4(x1, x2, 13, 15, 26, 6);
-    x1 += k1;
-    x2 += k2 + 3u;
-    mix4(x1, x2, 17, 29, 16, 24);
-    x1 += k2;
-    x2 += k3 + 4u;
-    mix4(x1, x2, 13, 15, 26, 6);
-    x1 += k3;
-    x2 += k1 + 5u;
-}
 
 __device__ __forceinline__ void store_key(int64_t* out, int i, uint32_t x1, uint32_t x2) {
     reinterpret_cast<longlong2*>(out)[i] =
@@ -144,7 +112,7 @@ threefry_words_kernel(const int64_t* __restrict__ keys, int n, int count, float 
             static_cast<int64_t*>(out)[static_cast<int64_t>(i) * count + c] =
                 static_cast<long long>(bits);
         } else {
-            const float u = __fsub_rn(__uint_as_float((bits >> 9) | 0x3F800000u), 1.0f);
+            const float u = unit_float(bits);
             static_cast<float*>(out)[static_cast<int64_t>(c) * n + i] =
                 __fadd_rn(lo, __fmul_rn(scale, u));
         }
@@ -190,13 +158,6 @@ static_assert(offsetof(DrawParams, key_stride) == 32 && offsetof(DrawParams, tag
 
 namespace {
 
-__device__ __forceinline__ void fold_in(uint32_t& k1, uint32_t& k2, uint32_t data) {
-    uint32_t x1 = 0u, x2 = data;
-    threefry(k1, k2, x1, x2);
-    k1 = x1;
-    k2 = x2;
-}
-
 // One thread a lane.
 __global__ void __launch_bounds__(kThreads)
 threefry_draw_kernel(const __grid_constant__ DrawParams p) {
@@ -217,7 +178,7 @@ threefry_draw_kernel(const __grid_constant__ DrawParams p) {
         for (int c = 0; c < spec.count; ++c) {
             uint32_t x1 = 0u, x2 = static_cast<uint32_t>(c);
             threefry(s1, s2, x1, x2);
-            const float u = __fsub_rn(__uint_as_float(((x1 ^ x2) >> 9) | 0x3F800000u), 1.0f);
+            const float u = unit_float(x1 ^ x2);
             p.out[static_cast<int64_t>(row + c) * p.n + i] =
                 __fadd_rn(spec.lo, __fmul_rn(spec.scale, u));
         }

@@ -49,7 +49,8 @@ from ..accel.knn import PhotonGrid, build_grid, knn_query, knn_radius
 from ..dtypes import DTYPE, INF
 from ..intersect import closest_hit, occluded
 from ..lights import sample_shape
-from ..materials import bsdf, sample_f
+from ..materials import bsdf
+from ..ops import photon_shoot
 from ..ops.sphere_sweep import (
     SphereTable, build_sphere_table, pack_spheres_transposed, sphere_sweep,
     sphere_sweep_phase,
@@ -118,17 +119,11 @@ def shoot_photons_device(scene, tables, key, photon_count: int, watts: float,
     return PhotonList(torch.cat(surface), torch.cat(volume), dropped)
 
 
-def _shoot_launch(scene, tables, light_index: int, power_scalar: float, max_depth: int,
-                  n: int, key):
-    """One chunk of ``n`` photons: returns (surface rows, volume rows,
-    dropped count) (`rpt_tpu/integrators/photon.py:137-294`)."""
+def _emit(scene, tables, light_index: int, power_scalar: float, n: int, key):
+    """A chunk's ``n`` photons leaving the light: their rays, powers and
+    keys (a `sampling.KeyPath` of ``keys_for(key, n)``) at level 0."""
     dev = scene.device
     lstat = scene.lights[light_index]
-    medium = scene.media[0] if scene.media else None
-    s_cap = 4 * n
-    v_cap = 10 * n if medium is not None else 16
-    materials = tables["materials"]
-
     keys = sampling.key_path(sampling.keys_for(key, n))
     pos, nrm, _ = sample_shape(lstat, tables["lights"][light_index], Vec3.zeros(n, dev),
                                sampling.fold(keys, 1))
@@ -137,72 +132,44 @@ def _shoot_launch(scene, tables, light_index: int, power_scalar: float, max_dept
     # power = watts/count * material.color() (photon.rs:763, NOT scaled by
     # emittance)
     power = Vec3.of(*lstat.color, device=dev).broadcast_to((n,)) * power_scalar
-    ray = Ray(pos, direction)
+    return Ray(pos, direction), power, keys
+
+
+def _shoot_launch(scene, tables, light_index: int, power_scalar: float, max_depth: int,
+                  n: int, key):
+    """One chunk of ``n`` photons: returns (surface rows, volume rows,
+    dropped count) (`rpt_tpu/integrators/photon.py:137-294`). A level is
+    `closest_hit`, then its interaction: K-shoot (`ops/photon_shoot.py`)
+    on the card, which refuses a medium of the caller's own callables, and
+    the chain of torch ops, `shoot_level_plain`, on the CPU."""
+    dev = scene.device
+    medium = scene.media[0] if scene.media else None
+    s_cap = 4 * n
+    v_cap = 10 * n if medium is not None else 16
+    materials = tables["materials"]
+    ray, power, keys = _emit(scene, tables, light_index, power_scalar, n, key)
+
+    if dev.type == "cuda":
+        chunk = photon_shoot.ShootChunk(ray, power, keys.base, materials, medium, max_depth,
+                                        s_cap, v_cap)
+        for b in range(max_depth):
+            if chunk.lanes == 0:
+                break
+            with tracing.span("photon.shoot_level", chunk.lanes):
+                photon_shoot.shoot_level(chunk, closest_hit(scene, tables, chunk.ray()), b)
+        return chunk.rows()
 
     s_out, v_out = [], []
     for b in range(max_depth):
-        if ray.origin.x.shape[0] == 0:
-            break
         nw = ray.origin.x.shape[0]
+        if nw == 0:
+            break
         with tracing.span("photon.shoot_level", nw):
-            zero = Vec3.zeros(nw, dev)
-            kb = sampling.fold(keys, b)
-            wo = -ray.dir.normalize()
             hit = closest_hit(scene, tables, ray)
-
-            # ---- volume interaction (photon.rs:877-915) -------------------
-            if medium is not None:
-                d, _, _ = medium.sample_d(ray, sampling.fold(kb, 1))
-                vol_event = d < torch.where(hit.valid, hit.time, INF)
-                collision = where(vol_event, ray.at(d), zero)
-                med_color = medium.color(collision)
-                rr_prob = medium.scattering(collision) / medium.extinction(collision)
-                u_v = sampling.uniform(sampling.fold(kb, 2))
-                wi_v, ph_p = medium.sample_ph(wo, sampling.fold(kb, 3))
-                ph = medium.phase(wo, wi_v)
-                vol_continue = vol_event & (u_v < rr_prob)
-                vol_power_next = power * med_color * (rr_prob * ph / torch.clamp(ph_p, min=1e-20))
-            else:
-                vol_event = torch.zeros(nw, dtype=torch.bool, device=dev)
-                collision = zero
-                wi_v = wo
-                vol_continue = vol_event
-                vol_power_next = power
-            surf_event = hit.valid & ~vol_event
-
-            # ---- surface interaction (photon.rs:813-874) ------------------
-            mat = materials.lookup(hit.material)
-            spos = where(surf_event, ray.at(hit.time), zero)
-            p_d = 0.7  # hardcoded diffuse RR (photon.rs:821-833)
-            u_s = sampling.uniform(sampling.fold(kb, 4))
-            wi_s, pdf_s, valid_s = sample_f(mat, hit.normal, wo, sampling.fold(kb, 5))
-            f = bsdf(mat, hit.normal, wo, wi_s)
-            cos_raw = wi_s.dot(hit.normal)
-            cosine_term = torch.where(cos_raw > 0.0, cos_raw, 1.0)  # photon.rs:846-850
-            surf_continue = surf_event & (u_s < p_d) & valid_s
-            surf_power_next = power * f * (cosine_term / (torch.clamp(pdf_s, min=1e-20) * p_d))
-            # deposit only on the survive branch, never on mirrors (:838-873)
-            surf_deposit = surf_continue & ~mat.is_mirror()
-
-            # ---- deposits: [pos, wo, PRE-attenuation power, beam start] ----
-            dpos = where(vol_event, collision, spos)
-            rows = torch.stack(
-                [dpos.x, dpos.y, dpos.z, wo.x, wo.y, wo.z,
-                 power.x.expand(nw), power.y.expand(nw), power.z.expand(nw),
-                 ray.origin.x.expand(nw), ray.origin.y.expand(nw), ray.origin.z.expand(nw)],
-                dim=1,
-            )
-            s_out.append(rows[surf_deposit])
-            v_out.append(rows[vol_event])
-
-            # ---- next level: survivors compacted in lane order -------------
-            cont = vol_continue | surf_continue
-            new_power = where(vol_event, vol_power_next, surf_power_next)
-            new_ray = Ray(dpos, where(vol_event, wi_v, wi_s))
-            sel = torch.nonzero(cont).squeeze(1)
-            ray = Ray(new_ray.origin[sel], new_ray.dir[sel])
-            power = new_power.broadcast_to((nw,))[sel]
-            keys = keys[sel]
+            s_rows, v_rows, ray, power, keys = photon_shoot.shoot_level_plain(
+                ray, power, keys, hit, b, medium, materials)
+        s_out.append(s_rows)
+        v_out.append(v_rows)
 
     s_rows, v_rows = torch.cat(s_out), torch.cat(v_out)
     dropped = max(0, s_rows.shape[0] - s_cap) + max(0, v_rows.shape[0] - v_cap)

@@ -6,6 +6,9 @@ and transmittance follow the reference exactly, including evaluating
 extinction at the ray origin only (medium.rs:126-130). Presets: the two
 isotropic fogs of the reference and the JAX package's Henyey-Greenstein
 medium, whose phase depends on the directions (``phase_const`` is None).
+Each preset also records its constants as a `MediumPreset`, which
+K-shoot (`ops/photon_shoot.py`) reads in place of the callables; a medium
+built from bare callables has none.
 """
 
 from __future__ import annotations
@@ -22,6 +25,28 @@ from .ray import Ray
 from .vec import Vec3, from_local, where
 
 
+ISOTROPIC = 1  # homogeneous_isotropic
+GLOWING = 2  # colored_glowing_fog
+HENYEY_GREENSTEIN = 3  # henyey_greenstein
+GLOW_SPLIT_Y = 250.0  # colored_glowing_fog is red above this height, blue below
+
+
+@dataclass(frozen=True)
+class MediumPreset:
+    """What a preset's callables compute, as numbers: its ``kind``, the
+    absorption and scattering coefficients, the asymmetry ``g`` (0 for the
+    isotropic kinds, whose phase is `Medium.phase_const`) and its colour,
+    float32 values (for the glowing fog ``color`` above `GLOW_SPLIT_Y` and
+    ``color_below`` under it)."""
+
+    kind: int
+    absorption: float
+    scattering: float
+    g: float
+    color: tuple
+    color_below: tuple
+
+
 @dataclass(frozen=True)
 class Medium:
     """Fields are callables over position (medium.rs:9-27); ``phase`` takes
@@ -36,6 +61,9 @@ class Medium:
     #: set when `phase` is a direction-independent constant (isotropic
     #: presets) — the sphere sweep kernel folds it into one scale
     phase_const: float | None = None
+    #: the constants of a preset; None for a medium of the caller's own
+    #: callables
+    preset: MediumPreset | None = None
 
     def extinction(self, pos: Vec3):
         """sigma_t = sigma_a + sigma_s (medium.rs:56-60)."""
@@ -74,6 +102,8 @@ class Medium:
             phase=lambda wo, wi: torch.full_like(wo.x, sampling.INV_4PI),
             sample_ph=sample_ph,
             phase_const=sampling.INV_4PI,
+            preset=MediumPreset(ISOTROPIC, absorption, scattering, 0.0, _floats(tan),
+                                _floats(tan)),
         )
 
     @staticmethod
@@ -84,7 +114,7 @@ class Medium:
         phase_const = 0.25 * math.pi  # sic, medium.rs:111
 
         def color(p: Vec3) -> Vec3:
-            return where(p.y > 250.0, _const(red, p), _const(blue, p))
+            return where(p.y > GLOW_SPLIT_Y, _const(red, p), _const(blue, p))
 
         def sample_ph(wo: Vec3, keys):
             r1, r2 = sampling.uniform2(sampling.fold(keys, 0x9A))
@@ -98,6 +128,8 @@ class Medium:
             phase=lambda wo, wi: torch.full_like(wo.x, phase_const),
             sample_ph=sample_ph,
             phase_const=phase_const,
+            preset=MediumPreset(GLOWING, absorption, scattering, 0.0, _floats(red),
+                                _floats(blue)),
         )
 
     @staticmethod
@@ -136,7 +168,14 @@ class Medium:
             color=lambda p: _const(col, p),
             phase=phase,
             sample_ph=sample_ph,
+            preset=MediumPreset(HENYEY_GREENSTEIN, absorption, scattering, g, _floats(col),
+                                _floats(col)),
         )
+
+
+def _floats(c: Vec3) -> tuple:
+    """A host constant color as three Python floats."""
+    return (float(c.x), float(c.y), float(c.z))
 
 
 def _const(c: Vec3, p: Vec3) -> Vec3:

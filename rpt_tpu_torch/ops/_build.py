@@ -4,8 +4,9 @@ Every ``rpt_tpu_torch/csrc/*.cu`` file is compiled by its own ``nvcc``
 (all started together) into a shared library with a plain C interface (no
 PyTorch headers, so a build takes seconds), for Hopper only (``sm_90a``),
 into ``rpt_tpu_torch/_build/`` at first use, and loaded with ctypes. Each
-file name carries a hash of its source and the flags, so an edited kernel
-is rebuilt and a stale library is never loaded.
+file name carries a hash of its source, the headers beside it
+(``csrc/*.cuh``) and the flags, so an edited kernel or header is rebuilt
+and a stale library is never loaded.
 
 `compile_and_load` is the one compile-and-load path of the package: the
 native SAH BVH builder (`csrc/bvh_builder.cpp`, loaded by `accel/bvh.py`)
@@ -78,6 +79,8 @@ _SIGNATURES = {
     # params (a DenseParams by reference, launched by value), stream
     "rpt_dense_closest_hit": [_P, _P],
     "rpt_dense_any_hit": [_P, _P],
+    # params (a ShootParams by reference, launched by value), stream
+    "rpt_photon_shoot_level": [_P, _P],
 }
 
 
@@ -111,11 +114,14 @@ def compile_and_load(stem: str, sources: list[str], command: list[str],
     """Compile ``sources`` with ``command`` (the compiler and its flags)
     into ``_build/<stem>_<hash>.so`` unless that file exists, load it with
     ctypes and set each entry point's ``(argtypes, restype)`` from
-    ``signatures``. The hash covers the flags and the sources, so an
-    edited source is rebuilt and a stale library never loaded. A compiler
-    failure raises. Returns ``(lib, path, build_seconds, compiler_log)``."""
+    ``signatures``. The hash covers the flags, the sources and the headers
+    beside them (``*.cuh`` in their directories), so an edited source or
+    header is rebuilt and a stale library never loaded. A compiler failure
+    raises. Returns ``(lib, path, build_seconds, compiler_log)``."""
     digest = hashlib.sha1(" ".join(command[1:]).encode())
-    for src in sources:
+    dirs = sorted({os.path.dirname(os.path.abspath(src)) for src in sources})
+    headers = sorted(h for d in dirs for h in glob.glob(os.path.join(d, "*.cuh")))
+    for src in (*sources, *headers):
         with open(src, "rb") as f:
             digest.update(f.read())
     os.makedirs(BUILD_DIR, exist_ok=True)

@@ -42,7 +42,7 @@ import torch.autograd.profiler as _profiler
 CAP = 1 << 18
 
 # (module, wrapper) of every kernel wrapper whose ``.launches`` a span
-# records: K-rng, K-prim, K1/K2, K-knn, K-sweep, K-dense
+# records: K-rng, K-prim, K1/K2, K-knn, K-sweep, K-dense, K-shoot
 COUNTERS = (
     ("rpt_tpu_torch.ops.threefry", "threefry_fold"),
     ("rpt_tpu_torch.ops.threefry", "threefry_split"),
@@ -58,6 +58,7 @@ COUNTERS = (
     ("rpt_tpu_torch.ops.sphere_sweep", "sphere_sweep"),
     ("rpt_tpu_torch.ops.dense_tri_hit", "dense_closest_hit"),
     ("rpt_tpu_torch.ops.dense_tri_hit", "dense_any_hit"),
+    ("rpt_tpu_torch.ops.photon_shoot", "shoot_level"),
 )
 
 _records: list = []
