@@ -275,15 +275,12 @@ def phase_build():
 def phase_render(spp_cap):
     sys.path.insert(0, os.path.join(ROOT, "examples"))
     import torch_volumetric_beamphoton_lampshade as ex
-    from rpt_tpu_torch.accel.knn import knn_query, knn_radius
-    from rpt_tpu_torch.ops.sphere_sweep import sphere_sweep
 
     spp = _cut(ex.sample, spp_cap)
     r = ex.renderer("cuda", sample=spp, seed=0)
     _zero_counts()
     img = r.photon_point_query_beam_render(ex.photons)
-    launches = {"sphere_sweep": sphere_sweep.launches, "knn_query": knn_query.launches,
-                "knn_radius": knn_radius.launches}
+    launches = {name: _launched(name) for name in ("sphere_sweep", "knn_query", "knn_radius")}
     rng = _read_rng("render", shoots=True)
     prims = _read_prim("render")
     dense = _read_dense("render", required=True)
@@ -499,10 +496,9 @@ def phase_rng():
     numbers = {}
     for n in RNG_SIZES:
         for label, name, kernel, plain, n_bytes, n_ops in _rng_forms(n, "cuda"):
-            wrapper = getattr(tf, name)
-            before = wrapper.launches
+            before = _launched(name)
             got = kernel()
-            launched = wrapper.launches - before
+            launched = _launched(name) - before
             equal, err = _compare(got, plain())
             ms, enqueue = _device_ms(kernel)
             plain_ms, plain_enqueue = _device_ms(plain)
@@ -579,9 +575,7 @@ def _rng_entries(numbers: dict) -> list:
 
 
 def _rng_counts() -> dict:
-    from rpt_tpu_torch.ops import threefry as tf
-
-    return {name: getattr(tf, name).launches for name in RNG_WRAPPERS}
+    return {name: _launched(name) for name in RNG_WRAPPERS}
 
 
 def _read_rng(path: str, shoots: bool = False) -> dict:
@@ -984,7 +978,6 @@ def phase_dragon():
     sys.path.insert(0, os.path.join(ROOT, "examples"))
     import torch_dragon as dr
     from rpt_tpu_torch import Buffer
-    from rpt_tpu_torch.ops.bvh_traverse import bvh_any_hit, bvh_closest_hit
     from rpt_tpu_torch.renderer import RayCounter
 
     t0 = time.perf_counter()
@@ -1012,8 +1005,7 @@ def phase_dragon():
     img = r.render()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"bvh_closest_hit": bvh_closest_hit.launches,
-                "bvh_any_hit": bvh_any_hit.launches}
+    launches = {name: _launched(name) for name in ("bvh_closest_hit", "bvh_any_hit")}
     rng = _read_rng("dragon")
     prims = _read_prim("dragon")
     segs = r.ray_counter.segments
@@ -1268,18 +1260,48 @@ def _sample0(r):
 
 
 def _zero_counts():
-    from rpt_tpu_torch.accel.knn import knn_query, knn_radius
-    from rpt_tpu_torch.ops import dense_tri_hit, prim_hit, threefry
-    from rpt_tpu_torch.ops.bvh_traverse import bvh_any_hit, bvh_closest_hit
-    from rpt_tpu_torch.ops.photon_shoot import shoot_level
-    from rpt_tpu_torch.ops.sphere_sweep import sphere_sweep
+    """Zero the launch counts: the program's table (`tracing.LAUNCHES`, each
+    kernel wrapper's launches by its name) and `KNN_BY_K`, whose counting
+    wrapper this puts in place at the first call."""
+    from rpt_tpu_torch import tracing
 
-    for wrapper in (knn_query, knn_radius, sphere_sweep, bvh_closest_hit, bvh_any_hit, shoot_level,
-                    *(getattr(threefry, name) for name in RNG_WRAPPERS),
-                    *(getattr(prim_hit, name) for name in K_PRIM),
-                    *(getattr(dense_tri_hit, name) for name in K_DENSE)):
-        wrapper.launches = 0
-    knn_query.by_k.clear()
+    tracing.LAUNCHES.clear()
+    KNN_BY_K.clear()
+    _count_knn_by_k()
+
+
+def _launched(name: str) -> int:
+    """The launches of the kernel wrapper ``name`` since `_zero_counts`."""
+    from rpt_tpu_torch import tracing
+
+    return tracing.LAUNCHES[name]
+
+
+# K-knn's launches by k since `_zero_counts`, on the photon integrator's
+# path (`_count_knn_by_k`)
+KNN_BY_K: dict = {}
+
+
+def _count_knn_by_k():
+    """Wrap the photon integrator's `knn_query` (its module attribute, which
+    the integrator reads at each call, as the benchmark's capture does) so
+    that every call counts the K-knn launches it made in `KNN_BY_K` under
+    its k. Once: a second call finds the wrapper in place."""
+    from rpt_tpu_torch.accel import knn
+    from rpt_tpu_torch.integrators import photon
+
+    inner = photon.knn_query
+    if inner is not knn.knn_query:
+        return
+
+    def by_k(grid, queries, k):
+        before = _launched("knn_query")
+        out = inner(grid, queries, k)
+        if _launched("knn_query") > before:
+            KNN_BY_K[k] = KNN_BY_K.get(k, 0) + _launched("knn_query") - before
+        return out
+
+    photon.knn_query = by_k
 
 
 # K-prim's entry points, and their launches on every path the smoke drives,
@@ -1297,9 +1319,7 @@ def _read_prim(path: str) -> dict:
     what an earlier run of the same path recorded) and fail where the path
     made no closest-hit query through K-prim: every path tests its rays
     against the analytic prims first (none in a scene without any)."""
-    from rpt_tpu_torch.ops import prim_hit
-
-    counts = {name: getattr(prim_hit, name).launches for name in K_PRIM}
+    counts = {name: _launched(name) for name in K_PRIM}
     if counts["prim_closest_hit"] <= 0:
         raise RuntimeError(f"the {path} path never launched prim_closest_hit: {counts}")
     seen = PRIM_LAUNCHES.setdefault(path, dict.fromkeys(K_PRIM, 0))
@@ -1312,9 +1332,7 @@ def _read_dense(path: str, required: bool = False) -> dict:
     """Record K-dense's launches of ``path`` since `_zero_counts` where it
     made any (adding to what an earlier run of the same path recorded);
     with ``required``, fail where either entry never launched."""
-    from rpt_tpu_torch.ops import dense_tri_hit
-
-    counts = {name: getattr(dense_tri_hit, name).launches for name in K_DENSE}
+    counts = {name: _launched(name) for name in K_DENSE}
     if required and min(counts.values()) <= 0:
         raise RuntimeError(f"the {path} path did not launch both K-dense entries: {counts}")
     if any(counts.values()):
@@ -1333,9 +1351,7 @@ def _read_shoot(path: str, required: bool = False) -> dict:
     made any (adding to what an earlier run of the same path recorded);
     with ``required`` (a path that shoots photons on the card), fail where
     it made none: every shoot level on the card takes K-shoot."""
-    from rpt_tpu_torch.ops.photon_shoot import shoot_level
-
-    counts = {"shoot_level": shoot_level.launches}
+    counts = {"shoot_level": _launched("shoot_level")}
     if required and counts["shoot_level"] <= 0:
         raise RuntimeError(f"the {path} path shot photons but never launched K-shoot")
     if counts["shoot_level"]:
@@ -1349,14 +1365,10 @@ def _read_counts(path: str, shoots: bool = False) -> dict:
     since `_zero_counts`; K-rng's are recorded for ``path`` by `_read_rng`,
     K-prim's also by `_read_prim`, K-dense's by `_read_dense`, K-shoot's by
     `_read_shoot` (required where ``shoots``)."""
-    from rpt_tpu_torch.accel.knn import knn_query, knn_radius
-    from rpt_tpu_torch.ops.bvh_traverse import bvh_any_hit, bvh_closest_hit
-    from rpt_tpu_torch.ops.sphere_sweep import sphere_sweep
-
     _read_rng(path, shoots)
-    return {"knn_query": knn_query.launches, "knn_query_by_k": dict(knn_query.by_k),
-            "knn_radius": knn_radius.launches, "sphere_sweep": sphere_sweep.launches,
-            "bvh_closest_hit": bvh_closest_hit.launches, "bvh_any_hit": bvh_any_hit.launches,
+    return {**{name: _launched(name) for name in ("knn_query", "knn_radius", "sphere_sweep",
+                                                  "bvh_closest_hit", "bvh_any_hit")},
+            "knn_query_by_k": dict(KNN_BY_K),
             **_read_dense(path), **_read_prim(path), **_read_shoot(path, shoots)}
 
 
@@ -1607,7 +1619,7 @@ def phase_skybox_photons(spp_cap):
     before ``photon_map_render`` and read just after. The scene has a
     medium, so each wavefront gathers twice at k = 50: over the surface
     photons and, at its sampled collision, over the volume photons. Its 20
-    triangles fill 3 leaf rows, under `intersect.DENSE_TRI_ROWS`, so they
+    triangles fill 3 leaf rows, under `ops.dense_tri_hit.DENSE_TRI_ROWS`, so they
     take K-dense and launch no K1/K2. Then both gathers on sample
     0's wavefronts, captured from its camera pass, against brute force.
     Returns ``(volume numbers, surface numbers, launches a gather)``."""
@@ -2263,8 +2275,6 @@ def _prim_bound(prims, ray, t_min, out_bytes: int, scan=None, extra_ops: float =
     outputs and the any-hit limits) and the rows once; the pair tests of
     every lane that must test every prim (those in ``scan``, else all), the
     monomials' searches that this data needs and ``extra_ops``."""
-    from rpt_tpu_torch.ops.prim_hit import monomial_searches
-
     n = ray.origin.x.numel()
     c = prims.counts
     per_lane = c[0] * SPHERE_OPS + c[1] * CUBE_OPS + c[2] * PLANE_OPS + c[3] * MONO_BOX_OPS
@@ -2272,6 +2282,36 @@ def _prim_bound(prims, ray, t_min, out_bytes: int, scan=None, extra_ops: float =
     ops = (lanes * per_lane + monomial_searches(prims, ray, t_min, scan) * MONO_SEARCH_OPS
            + extra_ops)
     return _bound(n * RAY_BYTES + out_bytes + _nbytes(prims.rows), ops)
+
+
+def monomial_searches(prims, ray, t_min, lanes=None) -> int:
+    """How many (lane, monomial) pairs pass the monomial's box test against
+    the best hit entering the monomial batch (the per-type chain's, over
+    the spheres, cubes and planes), and so run the Newton and bisection
+    search in K-prim (of the lanes in the bool mask ``lanes``, where
+    given): the data-dependent part of K-prim's work, for its bound. The
+    box is [-1, 0, -1] .. [1, h, 1] in the monomial's object space, as
+    `intersect_monomials` tests it."""
+    from rpt_tpu_torch.ops.prim_hit import PrimRows, prim_closest_hit_plain
+    from rpt_tpu_torch.ray import aabb_interval
+    from rpt_tpu_torch.vec import Vec3
+
+    if not prims.counts[3]:
+        return 0
+    front = PrimRows(prims.rows[:sum(prims.counts[:3])], (*prims.counts[:3], 0),
+                     {k: v for k, v in prims.sets.items() if k != "monomials"})
+    entry = prim_closest_hit_plain(front, ray, t_min).time
+    mono = prims.sets["monomials"]
+    total = 0
+    for i in range(mono.n):
+        local = ray.transform(mono.world_to_obj[i])
+        h = mono.param[i]
+        one = torch.ones_like(h)
+        b_min, b_max = aabb_interval(local, Vec3.of(-1.0, 0.0, -1.0, device=h.device),
+                                     Vec3(one, h, one))
+        feasible = torch.clamp(b_min, min=t_min) <= torch.minimum(b_max, entry)
+        total += int((feasible if lanes is None else feasible & lanes).sum())
+    return total
 
 
 def _bit_equal(a, b):
@@ -2347,7 +2387,7 @@ def phase_fractal(smi: str):
     any-hit launch; the per-type chain (`intersect_spheres` and its
     siblings) must not run."""
     import torch_fractal_spheres as ex
-    from rpt_tpu_torch import intersect
+    from rpt_tpu_torch.ops import prim_hit
 
     r = ex.renderer("cuda")
     compiled = r.compiled
@@ -2355,7 +2395,7 @@ def phase_fractal(smi: str):
     if counts != (937, 0, 1, 0) or compiled.n_tris:
         raise RuntimeError(f"the fractal compiled to {counts} prims, {compiled.n_tris} triangles")
     per_type = ("intersect_spheres", "intersect_cubes", "intersect_planes", "intersect_monomials")
-    saved = {name: getattr(intersect, name) for name in per_type}
+    saved = {name: getattr(prim_hit, name) for name in per_type}
     plain_calls = dict.fromkeys(per_type, 0)
 
     def counted(name):
@@ -2365,7 +2405,7 @@ def phase_fractal(smi: str):
         return run
 
     for name in per_type:
-        setattr(intersect, name, counted(name))
+        setattr(prim_hit, name, counted(name))
     try:
         _zero_counts()
         torch.cuda.synchronize()
@@ -2375,7 +2415,7 @@ def phase_fractal(smi: str):
         wall = time.perf_counter() - t0
     finally:
         for name, fn in saved.items():
-            setattr(intersect, name, fn)
+            setattr(prim_hit, name, fn)
     launches = _read_counts("fractal-spheres")
     finite = _check_image("[fractal-spheres]", r, img)
     segs = r.ray_counter.segments
@@ -2480,7 +2520,7 @@ def _dense_ops(bvh, ray, t_min, bound, walking, any_hit: bool) -> int:
     tests, `DENSE_T_OPS` for one whose t fails them. Lanes in ``walking``
     test the mesh; a closest-hit lane's bound falls to each hit's t, an
     any-hit lane stops at its first hit. The chain's arithmetic decides."""
-    from rpt_tpu_torch.intersect import _origin_on_plane
+    from rpt_tpu_torch.ops.dense_tri_hit import _origin_on_plane
     from rpt_tpu_torch.vec import Vec3
 
     shape = ray.origin.x.shape
@@ -2524,8 +2564,8 @@ def _dense_case(label: str, any_hit: bool, args) -> dict:
     ``skip`` lanes false): the bit-equal lanes, the kernel's device time
     (`_device_ms`) and the host's enqueue, the chain's time (CUDA events
     around one call) and the bound."""
-    from rpt_tpu_torch.intersect import dense_tri_hit_plain
     from rpt_tpu_torch.ops import dense_tri_hit as kd
+    from rpt_tpu_torch.ops.dense_tri_hit import dense_tri_hit_plain
 
     bvh, ray, t_min = args[:3]
     n = ray.origin.x.numel()
@@ -2587,8 +2627,8 @@ def phase_dense():
     with the others as side fields; their launches are the paths' own
     (`DENSE_LAUNCHES`), set by `main`."""
     from rpt_tpu_torch import Buffer
-    from rpt_tpu_torch.intersect import dense_tri_hit_plain
     from rpt_tpu_torch.ops import dense_tri_hit as kd
+    from rpt_tpu_torch.ops.dense_tri_hit import dense_tri_hit_plain
     import torch_volumetric_beamphoton_lampshade as beam_ex
     import torch_volumetric_pathtrace_lampshade as path_ex
 

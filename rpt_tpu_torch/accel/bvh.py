@@ -16,7 +16,7 @@ is:
   accelerates this further.
 * **Layout**: SoA arrays — node AABBs, left-child index, leaf ranges, and a
   *rope* (miss link). Leaves cover contiguous runs of Morton-sorted
-  primitives (max ``LEAF_SIZE``).
+  primitives (max ``LEAF_TRIS``).
 * **Traversal** (device): each ray holds a single node cursor. AABB hit →
   descend to left child; miss or leaf-done → follow the rope. No stack, no
   recursion; the whole wavefront advances in lock-step inside one
@@ -30,11 +30,32 @@ import os
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from ..ops._build import CSRC_DIR, compile_and_load
 
-LEAF_SIZE = 8  # must match rpt_tpu_torch.intersect.LEAF_TRIS
 SENTINEL = np.int32(-1)
+
+# Packed-row layout of `pack_bvh` (the JAX package's layout,
+# `rpt_tpu/intersect.py:77-92`), which the traversal and the dense test read.
+NODE_ROW = 16  # [Lmin(3) Rmin(3) | Lmax(3) Rmax(3) | Lptr Rptr Lmeta Rmeta]
+LEAF_TRIS = 8  # triangles a leaf, the most a leaf row holds
+LEAF_ROW = 80
+# leaf row: 10 component blocks of 8 slots
+#   [v1.x*8][v1.y*8][v1.z*8][e1.x*8][e1.y*8][e1.z*8][e2.x*8][e2.y*8][e2.z*8][id*8]
+SHADE_ROW = 12  # [n1.xyz, n2.xyz, n3.xyz, material, pad, pad]
+
+
+@dataclass(frozen=True)
+class BVHTables:
+    """Pair-packed BVH tables (`pack_bvh`) on the device: ``nodes`` (K,
+    NODE_ROW), ``leaves`` (L, LEAF_ROW) and ``shade`` (T, SHADE_ROW)
+    float32, and the exact traversal stack bound."""
+
+    nodes: torch.Tensor
+    leaves: torch.Tensor
+    shade: torch.Tensor
+    stack_depth: int = 48
 
 
 @dataclass
@@ -76,7 +97,7 @@ def _morton3(x: np.ndarray) -> np.ndarray:
     return (expand(q[:, 0]) << np.uint64(2)) | (expand(q[:, 1]) << np.uint64(1)) | expand(q[:, 2])
 
 
-def build_bvh(bb_min: np.ndarray, bb_max: np.ndarray, leaf_size: int = LEAF_SIZE) -> FlatBVH:
+def build_bvh(bb_min: np.ndarray, bb_max: np.ndarray, leaf_size: int = LEAF_TRIS) -> FlatBVH:
     """Build a BVH over primitive AABBs.
 
     Above ``2 * leaf_size`` primitives it takes the native C++ binned-SAH
@@ -89,7 +110,7 @@ def build_bvh(bb_min: np.ndarray, bb_max: np.ndarray, leaf_size: int = LEAF_SIZE
     return build_lbvh(bb_min, bb_max, leaf_size)
 
 
-def build_lbvh(bb_min: np.ndarray, bb_max: np.ndarray, leaf_size: int = LEAF_SIZE) -> FlatBVH:
+def build_lbvh(bb_min: np.ndarray, bb_max: np.ndarray, leaf_size: int = LEAF_TRIS) -> FlatBVH:
     """Vectorized-numpy LBVH (Karras 2012); no recursion, no native code."""
     bb_min = np.asarray(bb_min, np.float64).reshape(-1, 3)
     bb_max = np.asarray(bb_max, np.float64).reshape(-1, 3)
@@ -230,7 +251,7 @@ def build_lbvh(bb_min: np.ndarray, bb_max: np.ndarray, leaf_size: int = LEAF_SIZ
 
 def pack_bvh(bvh: FlatBVH, verts: np.ndarray, normals: np.ndarray, mats: np.ndarray):
     """Pack a FlatBVH + triangle soup into the pair-packed row layout of
-    `rpt_tpu_torch.intersect.BVHTables` (NODE_ROW/LEAF_ROW/SHADE_ROW there).
+    `BVHTables` (`NODE_ROW`, `LEAF_ROW`, `SHADE_ROW`).
 
     Each packed node row describes an *internal* node: both children's
     boxes + (ptr, meta) pairs, where meta>0 marks a leaf child with that
@@ -240,8 +261,6 @@ def pack_bvh(bvh: FlatBVH, verts: np.ndarray, normals: np.ndarray, mats: np.ndar
     applied here. Integers are stored as exact small floats (< 2^24).
     Returns (nodes, leaves, shade) float32 arrays.
     """
-    from ..intersect import LEAF_ROW, LEAF_TRIS, NODE_ROW, SHADE_ROW
-
     k = bvh.n_nodes
     v = np.asarray(verts, np.float64).reshape(-1, 3, 3)[bvh.perm]
     nm = np.asarray(normals, np.float64).reshape(-1, 3, 3)[bvh.perm]

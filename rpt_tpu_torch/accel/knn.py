@@ -19,22 +19,19 @@ exact.
 * `knn_query` is the wrapper: for tensors on the CPU it runs `knn_plain`,
   chunked brute force (the exact spec); for CUDA tensors it launches the
   hand-written kernel `csrc/knn.cu` (K-knn) or raises.
-  ``knn_query.launches`` counts kernel launches, ``knn_query.by_k`` the
-  same launches by their k.
 * `knn_radius` is the self-query of the radius pass: per grid point the
-  k-th nearest distance^2, itself included, in one launch
-  (``knn_radius.launches``), for k in `REGISTER_K`; on the CPU
-  `knn_radius_plain`.
+  k-th nearest distance^2, itself included, in one launch, for k in
+  `REGISTER_K`; on the CPU `knn_radius_plain`.
 * `knn_levels_plain` and `radius_units_plain` are the kernels' walk and
   unit cut in torch ops, for the tests; `knn_query_counts` and
   `knn_radius_counts` launch the kernels' counting variants (levels, cells
-  and candidates per query) for the smoke run and the profile tool, and
-  count no launch.
+  and candidates per query) for the smoke run and the profile tool.
+
+`ops._build.launch` counts every launch under its wrapper's name.
 """
 
 from __future__ import annotations
 
-import collections
 import itertools
 from dataclasses import dataclass
 
@@ -287,23 +284,22 @@ def _grid_args(grid: PhotonGrid) -> tuple:
             1.0 / grid.h, grid.slack)
 
 
-def _launch_query(grid: PhotonGrid, queries: torch.Tensor, k: int, counts):
+def _launch_query(name: str, grid: PhotonGrid, queries: torch.Tensor, k: int, counts):
     n, dev = queries.shape[0], queries.device
     idx = torch.empty((n, k), dtype=torch.int32, device=dev)
     d2 = torch.empty((n, k), dtype=torch.float32, device=dev)
     queries = queries.contiguous()
-    code = _build.library().lib.rpt_knn_query(
-        *_grid_args(grid), queries.data_ptr(), n, k, want_points(k), idx.data_ptr(),
-        d2.data_ptr(), None if counts is None else counts.data_ptr(), _build.stream_of(queries))
-    return code, idx, d2
+    _build.launch(name, "rpt_knn_query", queries, *_grid_args(grid), queries.data_ptr(), n, k,
+                  want_points(k), idx.data_ptr(), d2.data_ptr(),
+                  None if counts is None else counts.data_ptr())
+    return idx, d2
 
 
-def _launch_radius(grid: PhotonGrid, k: int, counts):
+def _launch_radius(name: str, grid: PhotonGrid, k: int, counts):
     out = torch.empty(grid.n, dtype=torch.float32, device=grid.points.device)
-    code = _build.library().lib.rpt_knn_radius(
-        *_grid_args(grid), k, want_points(k), out.data_ptr(),
-        None if counts is None else counts.data_ptr(), _build.stream_of(out))
-    return code, out
+    _build.launch(name, "rpt_knn_radius", out, *_grid_args(grid), k, want_points(k),
+                  out.data_ptr(), None if counts is None else counts.data_ptr())
+    return out
 
 
 def knn_query(grid: PhotonGrid, queries: torch.Tensor, k: int):
@@ -317,10 +313,7 @@ def knn_query(grid: PhotonGrid, queries: torch.Tensor, k: int):
     if n == 0 or grid.n == 0:
         d2 = torch.full((n, k), float("inf"), dtype=torch.float32, device=dev)
         return torch.zeros((n, k), dtype=torch.int64, device=dev), d2, torch.isfinite(d2)
-    code, idx, d2 = _launch_query(grid, queries, k, None)
-    knn_query.launches += 1
-    knn_query.by_k[k] += 1
-    _build.check(code, "knn_query")
+    idx, d2 = _launch_query("knn_query", grid, queries, k, None)
     valid = torch.isfinite(d2)
     return torch.where(valid, idx.long(), 0), d2, valid
 
@@ -335,10 +328,7 @@ def knn_radius(grid: PhotonGrid, k: int) -> torch.Tensor:
         return knn_radius_plain(grid, k)
     if grid.n == 0:
         return torch.empty(0, dtype=torch.float32, device=grid.points.device)
-    code, out = _launch_radius(grid, k, None)
-    knn_radius.launches += 1
-    _build.check(code, "knn_radius")
-    return out
+    return _launch_radius("knn_radius", grid, k, None)
 
 
 def knn_query_counts(grid: PhotonGrid, queries: torch.Tensor, k: int) -> torch.Tensor:
@@ -348,7 +338,7 @@ def knn_query_counts(grid: PhotonGrid, queries: torch.Tensor, k: int) -> torch.T
     _check_queries("knn_query_counts", grid, queries, k)
     counts = torch.zeros((queries.shape[0], 4), dtype=torch.int32, device=queries.device)
     if queries.shape[0] and grid.n:
-        _build.check(_launch_query(grid, queries, k, counts)[0], "knn_query_counts")
+        _launch_query("knn_query_counts", grid, queries, k, counts)
     return counts
 
 
@@ -360,10 +350,5 @@ def knn_radius_counts(grid: PhotonGrid, k: int) -> torch.Tensor:
     _check_k("knn_radius_counts", grid, k, REGISTER_K)
     counts = torch.zeros((grid.n, 4), dtype=torch.int32, device=grid.points.device)
     if grid.n:
-        _build.check(_launch_radius(grid, k, counts)[0], "knn_radius_counts")
+        _launch_radius("knn_radius_counts", grid, k, counts)
     return counts
-
-
-knn_query.launches = 0
-knn_query.by_k = collections.Counter()
-knn_radius.launches = 0

@@ -14,7 +14,11 @@ goes through it with g++.
 
 Each C entry point launches on the stream it is given, checks
 ``cudaGetLastError()`` right after every launch and returns the first
-non-zero code; `check` turns that into an exception.
+non-zero code. `launch` is the one way the wrappers call an entry point:
+on the current stream, counting the launch under the wrapper's name in
+`tracing.LAUNCHES`, then turning a non-zero code into an exception. The
+wrappers also share one device guard, `on_card`, and the lane helpers
+`lanes` and `lane_tensor`.
 """
 
 from __future__ import annotations
@@ -28,6 +32,11 @@ import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
+
+import torch
+
+from .. import tracing
+from ..dtypes import DTYPE
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -172,14 +181,46 @@ def library() -> KernelLibrary:
     return _LIBRARY
 
 
-def check(code: int, name: str) -> None:
-    """Raise on a non-zero CUDA status returned by an entry point."""
+def launch(name: str, entry: str, on: torch.Tensor, *args) -> None:
+    """Call the entry point ``entry`` with ``args`` and the current stream
+    of the device of ``on``, count the launch under the wrapper's ``name``
+    (`tracing.count`), then raise on a non-zero CUDA status."""
+    code = getattr(library().lib, entry)(*args, torch.cuda.current_stream(on.device).cuda_stream)
+    tracing.count(name)
     if code != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {code}")
 
 
-def stream_of(tensor) -> int:
-    """The raw handle of PyTorch's current stream on the tensor's device."""
-    import torch
+def on_card(name: str, t: torch.Tensor, n_lanes: int = 0) -> None:
+    """Refuse a tensor off the card, and ``n_lanes`` past what the kernels
+    count in int32."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    if n_lanes >= 1 << 31:
+        raise ValueError(f"{name}: {n_lanes} lanes; the kernel counts them in int32")
 
-    return torch.cuda.current_stream(tensor.device).cuda_stream
+
+def lanes(name: str, like: torch.Tensor, ray) -> tuple:
+    """The six components of ``ray`` (a `Ray`) broadcast to one lane shape
+    and flattened (views where they can be), and that shape; they must be
+    float32 on the device of the table ``like`` and, off the CPU, pass
+    `on_card`."""
+    comps = torch.broadcast_tensors(ray.origin.x, ray.origin.y, ray.origin.z,
+                                    ray.dir.x, ray.dir.y, ray.dir.z)
+    for c in comps:
+        if c.dtype != DTYPE:
+            raise ValueError(f"{name}: ray components must be float32, got {c.dtype}")
+        if c.device != like.device:
+            raise ValueError(f"{name}: the ray is on {c.device}, the rows on {like.device}")
+    flat = [c.reshape(-1) for c in comps]
+    if like.device.type != "cpu":
+        on_card(name, like, flat[0].shape[0])
+    return flat, comps[0].shape
+
+
+def lane_tensor(name: str, what: str, x, dtype, shape, dev) -> torch.Tensor:
+    """``x`` (a number or a tensor that broadcasts against the lanes) as a
+    flat view over the lanes, of ``dtype`` on ``dev``."""
+    if isinstance(x, torch.Tensor) and (x.dtype != dtype or x.device != dev):
+        raise ValueError(f"{name}: {what} must be {dtype} on {dev}, got {x.dtype} on {x.device}")
+    return torch.as_tensor(x, dtype=dtype, device=dev).expand(shape).reshape(-1)

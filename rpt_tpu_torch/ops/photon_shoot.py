@@ -16,9 +16,9 @@ the survivors.
 `ShootChunk` holds a chunk's state on the card: its lanes' rays, powers
 and key rows (two sets, the level's and the next), and the deposit
 buffers at the chain's capacities, filled at a running offset on the card.
-`shoot_level` runs one level on it and counts its calls in
-``shoot_level.launches``. Both serve CUDA tensors only, with no medium or
-a preset's (`medium.MediumPreset`), and raise on anything else.
+`shoot_level` runs one level on it, one launch (`_build.launch`). Both
+serve CUDA tensors only, with no medium or a preset's
+(`medium.MediumPreset`), and raise on anything else.
 `_shoot_launch` (`integrators/photon.py`) takes them for every chunk on
 the card and the plain version for every chunk on the CPU.
 """
@@ -297,10 +297,7 @@ def _launch(chunk: ShootChunk, hit: Hit, level: int) -> None:
         p.hit_normal[k] = cols[1 + k].data_ptr()
     p.hit_stride[:] = [x.stride(0) for x in cols]
     p.n, p.level = n, level
-    code = _build.library().lib.rpt_photon_shoot_level(ctypes.byref(p),
-                                                         _build.stream_of(chunk.offsets))
-    shoot_level.launches += 1
-    _build.check(code, "shoot_level")
+    _build.launch("shoot_level", "rpt_photon_shoot_level", chunk.offsets, ctypes.byref(p))
 
 
 def shoot_level(chunk: ShootChunk, hit: Hit, level: int) -> int:
@@ -315,6 +312,3 @@ def shoot_level(chunk: ShootChunk, hit: Hit, level: int) -> int:
     chunk.lanes = int(chunk.offsets[level + 1, 2])
     chunk.level = level + 1
     return chunk.lanes
-
-
-shoot_level.launches = 0

@@ -22,7 +22,7 @@ the pierced pairs of each ray through the same cull and test, for
 verification only (`pierced_count_plain` is its plain version).
 `sphere_sweep_phase` is the sweep for media whose phase is no constant:
 torch ops on every device, as it is XLA in the JAX package.
-``sphere_sweep.launches`` counts K-sweep's launches on the main path.
+`_build.launch` counts each launch under its wrapper's name.
 """
 
 from __future__ import annotations
@@ -315,8 +315,7 @@ def _check_args(ray_o, ray_d, hit_time, spheres, med_color=None):
 def _check_kernel_table(ray_o, spheres, n_spheres: int) -> None:
     """What a CUDA call needs beyond `_check_args`: the kernel-side table,
     whole and consistent with ``n_spheres``. Raises otherwise."""
-    if ray_o.device.type != "cuda":
-        raise ValueError(f"sphere_sweep: unsupported device {ray_o.device}")
+    _build.on_card("sphere_sweep", ray_o)
     if not isinstance(spheres, SphereTable):
         raise ValueError("sphere_sweep: a CUDA call needs the kernel-side SphereTable "
                          "(build_sphere_table), not the bare (FIELDS, P) table")
@@ -334,11 +333,12 @@ def _check_kernel_table(ray_o, spheres, n_spheres: int) -> None:
         raise ValueError("sphere_sweep: too many (ray block, tile) pairs for int32 lists")
 
 
-def _launch(entry: str, ray_o, ray_d, hit_time, table: SphereTable, args: tuple, out):
+def _launch(name: str, entry: str, ray_o, ray_d, hit_time, table: SphereTable, args: tuple,
+            out):
     """Launch one of the two entry points of `csrc/sphere_sweep.cu` with
-    its workspace; ``args`` are the entry's own arguments between the table
-    and the workspace. Returns the offsets of each ray block's kept tiles
-    in the work list, (n_rb + 1,) int32."""
+    its workspace for the wrapper ``name``; ``args`` are the entry's own
+    arguments between the table and the workspace. Returns the offsets of
+    each ray block's kept tiles in the work list, (n_rb + 1,) int32."""
     n = ray_o.shape[0]
     n_rb = -(-n // RAYS)
     dev = ray_o.device
@@ -349,13 +349,10 @@ def _launch(entry: str, ray_o, ray_d, hit_time, table: SphereTable, args: tuple,
     width = 3 if out.dim() == 2 else 1
     partial = torch.empty((max_blocks + n_rb) * RAYS * width, dtype=torch.float32, device=dev)
     ray_o, ray_d, hit_time = ray_o.contiguous(), ray_d.contiguous(), hit_time.contiguous()
-    code = getattr(_build.library().lib, entry)(
-        ray_o.data_ptr(), ray_d.data_ptr(), hit_time.data_ptr(), n,
-        table.records.data_ptr(), table.bounds.data_ptr(), table.n_tiles, *args,
-        keep.data_ptr(), lists.data_ptr(), counts.data_ptr(), partial.data_ptr(), max_blocks,
-        out.data_ptr(), _build.stream_of(ray_o),
-    )
-    _build.check(code, entry)
+    _build.launch(name, entry, ray_o, ray_o.data_ptr(), ray_d.data_ptr(), hit_time.data_ptr(),
+                  n, table.records.data_ptr(), table.bounds.data_ptr(), table.n_tiles, *args,
+                  keep.data_ptr(), lists.data_ptr(), counts.data_ptr(), partial.data_ptr(),
+                  max_blocks, out.data_ptr())
     return counts[n_rb:]
 
 
@@ -378,13 +375,9 @@ def sphere_sweep(ray_o, ray_d, hit_time, spheres, ext: float, med_color,
     if out.shape[0] and spheres.n_spheres:
         med_color = med_color.contiguous()
         scale = float(phase_const) * 3.0 / math.pi
-        _launch("rpt_sphere_sweep", ray_o, ray_d, hit_time, spheres,
+        _launch("sphere_sweep", "rpt_sphere_sweep", ray_o, ray_d, hit_time, spheres,
                 (float(ext), scale, med_color.data_ptr()), out)
-        sphere_sweep.launches += 1
     return out
-
-
-sphere_sweep.launches = 0
 
 
 def pierced_count(ray_o, ray_d, hit_time, table: SphereTable):
@@ -405,5 +398,6 @@ def pierced_count(ray_o, ray_d, hit_time, table: SphereTable):
     count = torch.zeros(n, dtype=torch.int32, device=ray_o.device)
     if n == 0 or table.n_spheres == 0:
         return count, torch.zeros(n_rb, dtype=torch.int32, device=ray_o.device)
-    offsets = _launch("rpt_sphere_pierced", ray_o, ray_d, hit_time, table, (), count)
+    offsets = _launch("pierced_count", "rpt_sphere_pierced", ray_o, ray_d, hit_time, table, (),
+                      count)
     return count, offsets[1:] - offsets[:-1]

@@ -15,7 +15,7 @@ partitionable ``jax.random.split``), `threefry_uniform` (``uniform`` with
 folds and up to eight draws from it, ``uniform(fold(...fold(fold_in(key,
 data), t0)..., tN))`` of several call sites in one launch) run the plain
 version for tensors on the CPU and launch K-rng for CUDA tensors, or
-raise. Each counts its launches (``threefry_fold.launches`` ...).
+raise; `_build.launch` counts each launch under the wrapper's name.
 `_prepare_fold`, `_prepare_words` and `_prepare_draw` turn a call into the
 kernel's flat arguments; `fold_flat_plain`, `words_flat_plain` and
 `draw_flat_plain` are the kernel's per-lane arithmetic on those arguments
@@ -420,11 +420,6 @@ def _draw_params(flat: Flat, out: torch.Tensor, key_out) -> "_DrawParams":
     return p
 
 
-def _on_card(name: str, t: torch.Tensor) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {t.device}")
-
-
 def threefry_fold(keys: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in`` of ``data`` (an int or an integer tensor,
     taken mod 2^32, broadcasting against the batch) into each key of
@@ -433,16 +428,13 @@ def threefry_fold(keys: torch.Tensor, data) -> torch.Tensor:
     flat = _prepare_fold(keys, data)
     if keys.device.type == "cpu":
         return fold_in_plain(keys, data)
-    _on_card("threefry_fold", keys)
+    _build.on_card("threefry_fold", keys)
     out = torch.empty((*flat.shape, 2), dtype=torch.int64, device=keys.device)
     if flat.n == 0:
         return out
-    code = _build.library().lib.rpt_threefry_fold(
-        flat.keys.data_ptr(), flat.key_stride,
-        None if flat.data is None else flat.data.data_ptr(), flat.data_stride,
-        flat.data_scalar, flat.n, out.data_ptr(), _build.stream_of(keys))
-    threefry_fold.launches += 1
-    _build.check(code, "threefry_fold")
+    _build.launch("threefry_fold", "rpt_threefry_fold", keys, flat.keys.data_ptr(),
+                  flat.key_stride, None if flat.data is None else flat.data.data_ptr(),
+                  flat.data_stride, flat.data_scalar, flat.n, out.data_ptr())
     return out
 
 
@@ -453,14 +445,12 @@ def threefry_split(key: torch.Tensor, n: int) -> torch.Tensor:
     flat = _prepare_split(key, n)
     if key.device.type == "cpu":
         return keys_for_plain(key, flat.n)
-    _on_card("threefry_split", key)
+    _build.on_card("threefry_split", key)
     out = torch.empty((flat.n, 2), dtype=torch.int64, device=key.device)
     if flat.n == 0:
         return out
-    code = _build.library().lib.rpt_threefry_split(flat.keys.data_ptr(), flat.n, out.data_ptr(),
-                                                   _build.stream_of(key))
-    threefry_split.launches += 1
-    _build.check(code, "threefry_split")
+    _build.launch("threefry_split", "rpt_threefry_split", key, flat.keys.data_ptr(), flat.n,
+                  out.data_ptr())
     return out
 
 
@@ -473,14 +463,11 @@ def threefry_uniform(keys: torch.Tensor, count: int, lo=0.0, hi=1.0) -> tuple:
     flat = _prepare_words("threefry_uniform", keys, count, lo, hi)
     if keys.device.type == "cpu":
         return uniforms_plain(keys, flat.count, lo, hi)
-    _on_card("threefry_uniform", keys)
+    _build.on_card("threefry_uniform", keys)
     out = torch.empty((flat.count, flat.n), dtype=torch.float32, device=keys.device)
     if flat.n:
-        code = _build.library().lib.rpt_threefry_uniform(
-            flat.keys.data_ptr(), flat.n, flat.count, flat.lo, flat.scale, out.data_ptr(),
-            _build.stream_of(keys))
-        threefry_uniform.launches += 1
-        _build.check(code, "threefry_uniform")
+        _build.launch("threefry_uniform", "rpt_threefry_uniform", keys, flat.keys.data_ptr(),
+                      flat.n, flat.count, flat.lo, flat.scale, out.data_ptr())
     return tuple(out[c].view(flat.shape) for c in range(flat.count))
 
 
@@ -491,13 +478,11 @@ def threefry_bits(keys: torch.Tensor, count: int) -> torch.Tensor:
     flat = _prepare_words("threefry_bits", keys, count)
     if keys.device.type == "cpu":
         return random_bits_plain(keys, flat.count)
-    _on_card("threefry_bits", keys)
+    _build.on_card("threefry_bits", keys)
     out = torch.empty((*flat.shape, flat.count), dtype=torch.int64, device=keys.device)
     if flat.n:
-        code = _build.library().lib.rpt_threefry_bits(
-            flat.keys.data_ptr(), flat.n, flat.count, out.data_ptr(), _build.stream_of(keys))
-        threefry_bits.launches += 1
-        _build.check(code, "threefry_bits")
+        _build.launch("threefry_bits", "rpt_threefry_bits", keys, flat.keys.data_ptr(), flat.n,
+                      flat.count, out.data_ptr())
     return out
 
 
@@ -515,7 +500,7 @@ def threefry_draw(keys: torch.Tensor, data, tags, draws, key_out: bool = False) 
     flat = _prepare_draw(keys, data, tags, draws, key_out)
     if keys.device.type == "cpu":
         return draw_plain(keys, data, flat.tags, draws, key_out)
-    _on_card("threefry_draw", keys)
+    _build.on_card("threefry_draw", keys)
     rows = sum(spec[1] for spec in flat.draws)
     out = torch.empty((rows, flat.n), dtype=torch.float32, device=keys.device)
     kout = (torch.empty((*flat.shape, 2), dtype=torch.int64, device=keys.device)
@@ -524,18 +509,10 @@ def threefry_draw(keys: torch.Tensor, data, tags, draws, key_out: bool = False) 
         if flat.keys.data_ptr() % 16:  # the kernel loads a key row as 16 bytes
             flat.keys = flat.keys.clone()
         params = _draw_params(flat, out, kout)
-        code = _build.library().lib.rpt_threefry_draw(
-            ctypes.byref(params), _build.stream_of(keys))
-        threefry_draw.launches += 1
-        _build.check(code, "threefry_draw")
+        _build.launch("threefry_draw", "rpt_threefry_draw", keys, ctypes.byref(params))
     floats = out.unbind(0)
     if flat.shape != (flat.n,):
         floats = tuple(f.view(flat.shape) for f in floats)
     return floats, kout
 
 
-threefry_fold.launches = 0
-threefry_split.launches = 0
-threefry_uniform.launches = 0
-threefry_bits.launches = 0
-threefry_draw.launches = 0

@@ -56,6 +56,18 @@ class Hit:
         return torch.isfinite(self.time)
 
 
+def aabb_interval(ray: Ray, p_min: Vec3, p_max: Vec3):
+    """The ray's parameter interval inside the box [p_min, p_max], NaN-safe
+    as the slab test of kdtree.rs:57-71: an axis whose 0*inf gives NaN
+    does not constrain. Returns ``(enter, exit)``."""
+    inv = ray.dir.map(torch.reciprocal)
+    t1 = (p_min - ray.origin) * inv
+    t2 = (p_max - ray.origin) * inv
+    lo = t1.minimum(t2).map(lambda c: torch.where(torch.isnan(c), -INF, c))
+    hi = t1.maximum(t2).map(lambda c: torch.where(torch.isnan(c), INF, c))
+    return lo.max_component(), hi.min_component()
+
+
 def closer(a: Hit, b: Hit) -> Hit:
     """Keep the closer hit per lane (shape.rs:20-22)."""
     take_b = b.time < a.time

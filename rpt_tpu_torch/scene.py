@@ -17,10 +17,9 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from .accel.bvh import build_bvh, pack_bvh
+from .accel.bvh import BVHTables, build_bvh, pack_bvh
 from .dtypes import DTYPE, resolve_device
 from .environment import ColorEnvironment, Hdri
-from .intersect import BVHTables, PlaneSet, PrimSet
 from .lights import (
     AmbientLight,
     DirectionalLight,
@@ -31,7 +30,7 @@ from .lights import (
 )
 from .materials import Material, MaterialTable
 from .medium import Medium
-from .ops.prim_hit import PrimRows, pack_prims
+from .ops.prim_hit import PlaneSet, PrimRows, PrimSet, pack_prims
 from .shapes import (
     Cube,
     Mesh,

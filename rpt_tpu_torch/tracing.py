@@ -14,11 +14,10 @@ root span's own id, shared by every span under it: one `Renderer.sample`
 or `photon_render` call), its start and end on `time.time_ns()` (the
 Unix-epoch clock the profiler writes its events on; the card's own
 timestamps, converted to it, can stray by a fraction of a millisecond
-over a long session), the launches of each kernel
-wrapper over it (the difference of its ``.launches`` counter, `COUNTERS`)
-and, where the caller already holds the number on the host, its live
-lanes. A span never reads a tensor: counts that live on the card are left
-out.
+over a long session), the launches of each kernel wrapper over it (the
+difference of `LAUNCHES` across it) and, where the caller already holds
+the number on the host, its live lanes. A span never reads a tensor:
+counts that live on the card are left out.
 
 Spans are kept in this process's memory until `clear`, at most `CAP` of
 them (`dropped` counts the rest); nothing is written during a run.
@@ -33,7 +32,7 @@ events, which `Renderer.profile` adds to its trace.
 
 from __future__ import annotations
 
-import importlib
+import collections
 import itertools
 import time
 
@@ -41,41 +40,20 @@ import torch.autograd.profiler as _profiler
 
 CAP = 1 << 18
 
-# (module, wrapper) of every kernel wrapper whose ``.launches`` a span
-# records: K-rng, K-prim, K1/K2, K-knn, K-sweep, K-dense, K-shoot
-COUNTERS = (
-    ("rpt_tpu_torch.ops.threefry", "threefry_fold"),
-    ("rpt_tpu_torch.ops.threefry", "threefry_split"),
-    ("rpt_tpu_torch.ops.threefry", "threefry_uniform"),
-    ("rpt_tpu_torch.ops.threefry", "threefry_bits"),
-    ("rpt_tpu_torch.ops.threefry", "threefry_draw"),
-    ("rpt_tpu_torch.ops.prim_hit", "prim_closest_hit"),
-    ("rpt_tpu_torch.ops.prim_hit", "prim_any_hit"),
-    ("rpt_tpu_torch.ops.bvh_traverse", "bvh_closest_hit"),
-    ("rpt_tpu_torch.ops.bvh_traverse", "bvh_any_hit"),
-    ("rpt_tpu_torch.accel.knn", "knn_query"),
-    ("rpt_tpu_torch.accel.knn", "knn_radius"),
-    ("rpt_tpu_torch.ops.sphere_sweep", "sphere_sweep"),
-    ("rpt_tpu_torch.ops.dense_tri_hit", "dense_closest_hit"),
-    ("rpt_tpu_torch.ops.dense_tri_hit", "dense_any_hit"),
-    ("rpt_tpu_torch.ops.photon_shoot", "shoot_level"),
-)
+# Every kernel launch of this process, by the name of the wrapper that
+# made it: `ops._build.launch` counts each one here (`count`), whether or
+# not a span records.
+LAUNCHES = collections.Counter()
 
 _records: list = []
 _open: list = []  # the spans entered and not yet left, innermost last
 _ids = itertools.count(1)
 _dropped = 0
-_modules = None  # the modules of COUNTERS, imported at the first recorded span
 
 
-def _counts() -> tuple:
-    """Every wrapper's ``.launches`` now. The wrapper is looked up in its
-    module on each read: a caller may have replaced it by a wrapper of its
-    own that carries the counter on."""
-    global _modules
-    if _modules is None:
-        _modules = [importlib.import_module(m) for m, _ in COUNTERS]
-    return tuple(getattr(mod, fn).launches for mod, (_, fn) in zip(_modules, COUNTERS))
+def count(name: str) -> None:
+    """Count one launch by the kernel wrapper ``name``."""
+    LAUNCHES[name] += 1
 
 
 class Span:
@@ -94,7 +72,7 @@ class Span:
         self.id = next(_ids)
         self.parent = parent.id if parent is not None else None
         self.request = parent.request if parent is not None else self.id
-        self._before = _counts()
+        self._before = LAUNCHES.copy()
         self.start_ns = time.time_ns()
         _open.append(self)
         return self
@@ -102,9 +80,7 @@ class Span:
     def __exit__(self, exc_type, exc, tb):
         global _dropped
         self.end_ns = time.time_ns()
-        after = _counts()
-        self.launches = {fn: b - a for (_, fn), a, b in zip(COUNTERS, self._before, after)
-                         if b != a}
+        self.launches = dict(LAUNCHES - self._before)
         self._before = None
         _open.pop()  # `with` leaves spans in the reverse order it entered them
         if len(_records) < CAP:

@@ -14,6 +14,7 @@ a GPU machine without JAX (`tests/conftest.py` imports jax, hence
 """
 
 import ctypes
+import inspect
 import math
 import os
 import re
@@ -25,11 +26,13 @@ import pytest
 import torch
 
 from rpt_tpu_torch import intersect, tracing
-from rpt_tpu_torch.accel.bvh import build_bvh, pack_bvh
-from rpt_tpu_torch.intersect import BVHTables, dense_tri_hit_plain
+from rpt_tpu_torch.accel.bvh import (
+    LEAF_ROW, LEAF_TRIS, NODE_ROW, SHADE_ROW, BVHTables, build_bvh, pack_bvh,
+)
 from rpt_tpu_torch.ops import _build
 from rpt_tpu_torch.ops import bvh_traverse as k12
 from rpt_tpu_torch.ops import dense_tri_hit as kd
+from rpt_tpu_torch.ops.dense_tri_hit import DENSE_TRI_ROWS, dense_tri_hit_plain
 from rpt_tpu_torch.ray import Hit, Ray
 from rpt_tpu_torch.vec import Vec3
 
@@ -49,16 +52,16 @@ def _tables(tris, rows, dev="cpu", mats=None) -> BVHTables:
     normals are its vertices, its material its index plus 1. No nodes: only
     the dense test reads these."""
     tris = np.asarray(tris, np.float32)
-    leaves = np.zeros((rows, intersect.LEAF_ROW), np.float32)
+    leaves = np.zeros((rows, LEAF_ROW), np.float32)
     leaves[:, 72:] = -1.0
     for k, (a, b, c) in enumerate(tris):
-        r, s = divmod(k, intersect.LEAF_TRIS)
+        r, s = divmod(k, LEAF_TRIS)
         for comp, value in enumerate((*a, *(b - a), *(c - a), k)):
             leaves[r, comp * 8 + s] = value
-    shade = np.zeros((len(tris), intersect.SHADE_ROW), np.float32)
+    shade = np.zeros((len(tris), SHADE_ROW), np.float32)
     shade[:, :9] = tris.reshape(-1, 9)
     shade[:, 9] = np.arange(1, len(tris) + 1) if mats is None else mats
-    empty = torch.zeros((0, intersect.NODE_ROW))
+    empty = torch.zeros((0, NODE_ROW))
     return BVHTables(empty.to(dev), torch.from_numpy(leaves).to(dev),
                      torch.from_numpy(shade).to(dev))
 
@@ -139,7 +142,7 @@ def test_cpu_rays_take_the_chain_and_launch_nothing():
     ray, rng = _rays(700, 2, tris=soup)
     ray = _restart(bvh, ray, rng)
     best = _best(700, rng, "cpu")
-    before = (kd.dense_closest_hit.launches, kd.dense_any_hit.launches)
+    before = tracing.LAUNCHES.copy()
     got = intersect.bvh_closest_hit(bvh, ray, T_MIN, best)
     ref = dense_tri_hit_plain(bvh, ray, T_MIN, best)
     assert _same_hit(got, ref)
@@ -158,7 +161,7 @@ def test_cpu_rays_take_the_chain_and_launch_nothing():
     assert torch.equal(occ, chain & ~skip)
     assert torch.equal(kd.dense_any_hit_plain(bvh, ray, T_MIN, limit), chain)
     assert not bool(occ[skip | (limit <= T_MIN)].any()) and 0.05 < float(occ.float().mean())
-    assert (kd.dense_closest_hit.launches, kd.dense_any_hit.launches) == before
+    assert tracing.LAUNCHES == before
 
 
 def test_rows_above_the_limit_take_the_traversal(monkeypatch):
@@ -174,9 +177,9 @@ def test_rows_above_the_limit_take_the_traversal(monkeypatch):
         monkeypatch.setattr(intersect.kernels, name,
                             lambda *a, _n=name, _f=real, **k: seen.append(_n) or _f(*a, **k))
     ray, _ = _rays(64, 3)
-    small = _tables(_soup(64, 4), intersect.DENSE_TRI_ROWS)
+    small = _tables(_soup(64, 4), DENSE_TRI_ROWS)
     big = _packed(300, 5)
-    assert big.leaves.shape[0] > intersect.DENSE_TRI_ROWS
+    assert big.leaves.shape[0] > DENSE_TRI_ROWS
     for bvh in (small, big):
         intersect.bvh_closest_hit(bvh, ray, T_MIN, Hit.none((64,)))
         intersect.bvh_any_hit(bvh, ray, T_MIN, 2.0)
@@ -218,16 +221,16 @@ def test_wrappers_check_their_arguments():
                            ("best", torch.ones(50), torch.int32),
                            ("skip", torch.ones(50, dtype=torch.bool, device="meta"), torch.bool)):
         with pytest.raises(ValueError, match=f"{what} must be"):
-            kd._lane_tensor("dense_any_hit", what, x, dtype, (50,), cpu)
-    flat = kd._lane_tensor("dense_any_hit", "limit", 2.0, torch.float32, (50,), cpu)
+            _build.lane_tensor("dense_any_hit", what, x, dtype, (50,), cpu)
+    flat = _build.lane_tensor("dense_any_hit", "limit", 2.0, torch.float32, (50,), cpu)
     assert flat.shape == (50,) and flat.stride(0) == 0 and bool((flat == 2.0).all())
 
 
 def test_params_struct_matches_the_kernel():
     """`_DenseParams` has the layout that `csrc/dense_tri_hit.cu` pins with
     its static_asserts, the two entry points take it by reference, its row
-    widths and row limit are `intersect`'s, and the spans count both
-    wrappers' launches."""
+    widths and row limit are the packer's and the module's, and each
+    wrapper launches under its own name, as the spans count it."""
     with open(os.path.join(_build.CSRC_DIR, "dense_tri_hit.cu")) as f:
         src = f.read()
     pinned = dict(re.findall(r"offsetof\(DenseParams, (\w+)\) == (\d+)", src))
@@ -235,14 +238,14 @@ def test_params_struct_matches_the_kernel():
         k: getattr(kd._DenseParams, k).offset for k in pinned}
     assert int(re.search(r"sizeof\(DenseParams\) == (\d+)", src).group(1)) == \
         ctypes.sizeof(kd._DenseParams)
-    for name, value in (("kLeafTris", intersect.LEAF_TRIS), ("kLeafRow", intersect.LEAF_ROW),
-                        ("kShadeRow", intersect.SHADE_ROW), ("kMaxRows", intersect.DENSE_TRI_ROWS)):
+    for name, value in (("kLeafTris", LEAF_TRIS), ("kLeafRow", LEAF_ROW),
+                        ("kShadeRow", SHADE_ROW), ("kMaxRows", DENSE_TRI_ROWS)):
         assert int(re.search(rf"constexpr int {name} = (\d+);", src).group(1)) == value
     for name in ("rpt_dense_closest_hit", "rpt_dense_any_hit"):
         assert re.search(rf'extern "C" int {name}\(const DenseParams\* params, void\* stream\)',
                          src)
         assert _build._SIGNATURES[name] == [ctypes.c_void_p, ctypes.c_void_p]
-        assert ("rpt_tpu_torch.ops.dense_tri_hit", name[4:]) in tracing.COUNTERS
+        assert f'_build.launch("{name[4:]}", "{name}", ' in inspect.getsource(kd)
 
 
 # ---------------------------------------------------------------------------
@@ -250,18 +253,18 @@ def test_params_struct_matches_the_kernel():
 
 
 def _check_closest(bvh, ray, t_min, best):
-    before = kd.dense_closest_hit.launches
+    before = tracing.LAUNCHES["dense_closest_hit"]
     got = kd.dense_closest_hit(bvh, ray, t_min, best)
-    assert kd.dense_closest_hit.launches == before + 1
+    assert tracing.LAUNCHES["dense_closest_hit"] == before + 1
     ref = dense_tri_hit_plain(bvh, ray, t_min, best)
     assert _same_hit(got, ref)
     return ref
 
 
 def _check_any(bvh, ray, t_min, limit, skip=None):
-    before = kd.dense_any_hit.launches
+    before = tracing.LAUNCHES["dense_any_hit"]
     got = kd.dense_any_hit(bvh, ray, t_min, limit, skip)
-    assert kd.dense_any_hit.launches == before + 1
+    assert tracing.LAUNCHES["dense_any_hit"] == before + 1
     ref = kd.dense_any_hit_plain(bvh, ray, t_min, limit, skip)
     assert torch.equal(got, ref)
     return ref
@@ -307,7 +310,7 @@ def test_dense_kernel_matches_the_chain_on_lampshade_wavefronts():
     from rpt_tpu_torch import Buffer
 
     path = _lampshade("torch_volumetric_pathtrace_lampshade", size=48, sample=1)
-    assert path.compiled.tables["bvh"].leaves.shape[0] <= intersect.DENSE_TRI_ROWS
+    assert path.compiled.tables["bvh"].leaves.shape[0] <= DENSE_TRI_ROWS
     beam = _lampshade("torch_volumetric_beamphoton_lampshade", size=48, sample=1,
                       photons=100_000)
     captured = [_capture(lambda: path.sample(1, Buffer(48, 48, path.filter_))),
@@ -403,16 +406,13 @@ def test_nine_rows_launch_the_traversal_on_card():
     launches K-dense and never K1/K2."""
     dev = _card()
     big = _packed(300, 9, dev)
-    assert big.leaves.shape[0] > intersect.DENSE_TRI_ROWS
+    assert big.leaves.shape[0] > DENSE_TRI_ROWS
     small = _tables(_soup(40, 10), 5, dev)
     ray, _ = _rays(2000, 12, dev)
 
-    def launches():
-        return (kd.dense_closest_hit.launches, kd.dense_any_hit.launches,
-                k12.bvh_closest_hit.launches, k12.bvh_any_hit.launches)
-
-    for bvh, expect in ((big, (0, 0, 1, 1)), (small, (1, 1, 0, 0))):
-        before = launches()
+    for bvh, expect in ((big, ("bvh_closest_hit", "bvh_any_hit")),
+                        (small, ("dense_closest_hit", "dense_any_hit"))):
+        before = tracing.LAUNCHES.copy()
         intersect.bvh_closest_hit(bvh, ray, T_MIN, Hit.none((2000,), dev))
         intersect.bvh_any_hit(bvh, ray, T_MIN, 2.0)
-        assert tuple(b - a for a, b in zip(before, launches())) == expect
+        assert tracing.LAUNCHES - before == dict.fromkeys(expect, 1)

@@ -13,12 +13,12 @@ import numpy as np
 import pytest
 import torch
 
-from rpt_tpu_torch.accel.bvh import build_bvh, pack_bvh
+from rpt_tpu_torch import tracing
+from rpt_tpu_torch.accel.bvh import BVHTables, build_bvh, pack_bvh
 from rpt_tpu_torch.accel.knn import (
     LEVELS, REGISTER_K, UNIT, build_grid, cell_coords, cell_runs, knn_plain, knn_query, knn_query_counts,
     knn_radius, knn_radius_counts, knn_radius_plain, morton_code, radius_units_plain,
 )
-from rpt_tpu_torch.intersect import BVHTables
 from rpt_tpu_torch.ops.bvh_traverse import (
     bvh_any_hit, bvh_any_hit_plain, bvh_closest_hit, bvh_closest_hit_plain, traverse_counts,
 )
@@ -120,7 +120,7 @@ def test_knn_wrappers_on_empty_clouds_and_bad_k():
     radius pass takes only k in `REGISTER_K`; on the CPU neither wrapper
     launches anything."""
     empty = build_grid(torch.zeros((0, 3)))
-    before = (knn_query.launches, knn_radius.launches)
+    before = tracing.LAUNCHES.copy()
     idx, d2, valid = knn_query(empty, torch.zeros((3, 3)), 5)
     assert idx.shape == d2.shape == valid.shape == (3, 5) and not bool(valid.any())
     assert knn_radius(empty, 10).shape == (0,)
@@ -133,7 +133,7 @@ def test_knn_wrappers_on_empty_clouds_and_bad_k():
     for k in (0, 129):
         with pytest.raises(ValueError):
             knn_query(grid, torch.zeros((2, 3)), k)
-    assert (knn_query.launches, knn_radius.launches) == before
+    assert tracing.LAUNCHES == before
 
 
 def test_wrappers_reject_bad_inputs():
@@ -204,9 +204,9 @@ def test_kernels_match_plain_on_card():
     with pytest.raises(ValueError, match="SphereTable"):
         sphere_sweep(*args, n_spheres=p, phase_const=0.1)
     table = build_sphere_table(sph, p)
-    before = sphere_sweep.launches
+    before = tracing.LAUNCHES["sphere_sweep"]
     got = sphere_sweep(*args[:3], table, *args[4:], n_spheres=p, phase_const=0.1)
-    assert sphere_sweep.launches == before + 1
+    assert tracing.LAUNCHES["sphere_sweep"] == before + 1
     ref = sphere_sweep_plain(*args, n_spheres=p, phase_const=0.1)
     assert (ref.abs().sum(1) > 0).float().mean() > 0.2  # rays do pierce spheres
     torch.testing.assert_close(got, ref, rtol=1e-3, atol=1e-6 * float(ref.abs().max()))
@@ -222,9 +222,9 @@ def test_kernels_match_plain_on_card():
     ref = sphere_sweep_plain(oc, dc, thc, sphc, *argc[4:], n_spheres=20011, phase_const=0.08)
     assert (ref.abs().sum(1) > 0).float().mean() > 0.3
     torch.testing.assert_close(got, ref, rtol=1e-3, atol=1e-6 * float(ref.abs().max()))
-    before = sphere_sweep.launches
+    before = tracing.LAUNCHES["sphere_sweep"]
     count, kept = pierced_count(oc, dc, thc, table)
-    assert sphere_sweep.launches == before  # verification launches are not counted
+    assert tracing.LAUNCHES["sphere_sweep"] == before  # counted as `pierced_count`
     assert torch.equal(count.long(), pierced_count_plain(oc, dc, thc, sphc, 20011))
     assert int(count.sum()) > 10_000 and kept.shape == (12,)
     assert int(kept.sum()) < 0.5 * kept.numel() * table.n_tiles
@@ -232,9 +232,9 @@ def test_kernels_match_plain_on_card():
     grid = build_grid(t(rng.normal(0, 1, (20000, 3))))
     q = t(rng.normal(0, 3, (2051, 3)))  # many outside the grid
     for k in (10, 20):
-        before = knn_query.launches
+        before = tracing.LAUNCHES["knn_query"]
         idx, d2, valid = knn_query(grid, q, k)
-        assert knn_query.launches == before + 1
+        assert tracing.LAUNCHES["knn_query"] == before + 1
         _, d2p, _ = knn_plain(grid.points, q, k)
         assert valid.all() and torch.equal(d2, d2p)
         recomputed = ((grid.points[idx] - q[:, None, :]) ** 2).sum(-1)
@@ -265,10 +265,10 @@ def test_knn_kernels_match_plain_on_card():
                    torch.tensor(rng.uniform(-400, 400, (211, 3)), dtype=torch.float32,
                                 device="cuda")])
     for k in (10, 20, 12, 50):
-        before = (knn_query.launches, knn_radius.launches)
+        before = tracing.LAUNCHES.copy()
         idx, d2, valid = knn_query(grid, q, k)
         radius = knn_radius(grid, k if k in REGISTER_K else 10)
-        assert (knn_query.launches, knn_radius.launches) == (before[0] + 1, before[1] + 1)
+        assert tracing.LAUNCHES - before == {"knn_query": 1, "knn_radius": 1}
         _, d2p, _ = knn_plain(grid.points, q, k)
         assert valid.all() and torch.equal(d2, d2p)
         at = ((grid.points[idx] - q[:, None, :]) ** 2).sum(-1)
@@ -276,14 +276,15 @@ def test_knn_kernels_match_plain_on_card():
         ranked = torch.sort(idx, dim=1).values
         assert bool((ranked[:, 1:] != ranked[:, :-1]).all())
         assert torch.equal(radius, knn_radius_plain(grid, k if k in REGISTER_K else 10))
-    before = (knn_query.launches, knn_radius.launches)
+    before = tracing.LAUNCHES.copy()
     for k in (20, 50, 100):
         counts = knn_query_counts(grid, q, k)
         assert counts.shape == (len(q), 4) and int(counts[:, 0].min()) >= 1
         assert int(counts[:, 2].min()) >= k  # every query tests at least k candidates
     counts = knn_radius_counts(grid, 10)
     assert counts.shape == (grid.n, 4) and int(counts[:, 3].max()) <= UNIT
-    assert (knn_query.launches, knn_radius.launches) == before
+    # the counting variants count under their own names
+    assert tracing.LAUNCHES - before == {"knn_query_counts": 3, "knn_radius_counts": 1}
 
     few = build_grid(torch.tensor(pts[:6], dtype=torch.float32, device="cuda"))
     idx, d2, valid = knn_query(few, q[:50], 10)
@@ -342,9 +343,9 @@ def test_knn_query_at_gather_sizes_on_card(k):
                    torch.tensor(pts[60000:60040], dtype=torch.float32, device="cuda"),
                    torch.tensor(rng.uniform(-400, 400, (211, 3)), dtype=torch.float32,
                                 device="cuda")])
-    before = knn_query.launches
+    before = tracing.LAUNCHES["knn_query"]
     idx, d2, valid = knn_query(grid, q, k)
-    assert knn_query.launches == before + 1
+    assert tracing.LAUNCHES["knn_query"] == before + 1
     _, d2p, _ = knn_plain(grid.points, q, k)
     assert bool(valid.all()) and torch.equal(d2, d2p)
     at = ((grid.points[idx] - q[:, None, :]) ** 2).sum(-1)
@@ -365,7 +366,7 @@ def test_plain_traversal_matches_brute_force():
     every lane (a soup has no shared edges to tie on), and the same any-hit
     flags. The wrappers take the plain version for CPU tensors and launch
     nothing."""
-    from rpt_tpu_torch.intersect import dense_tri_hit_plain
+    from rpt_tpu_torch.ops.dense_tri_hit import dense_tri_hit_plain
     from rpt_tpu_torch.ray import Hit, Ray
     from rpt_tpu_torch.vec import Vec3
 
@@ -377,7 +378,7 @@ def test_plain_traversal_matches_brute_force():
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     o, d = (torch.tensor(a, dtype=torch.float32) for a in (o, d))
     inf = torch.full((n,), float("inf"))
-    before = (bvh_closest_hit.launches, bvh_any_hit.launches)
+    before = tracing.LAUNCHES.copy()
     t, tri, *_ = bvh_closest_hit(bvh, o, d, 1e-4, inf)
     ray = Ray(Vec3(o[:, 0], o[:, 1], o[:, 2]), Vec3(d[:, 0], d[:, 1], d[:, 2]))
     dense = dense_tri_hit_plain(bvh, ray, 1e-4, Hit.none((n,)))
@@ -387,7 +388,7 @@ def test_plain_traversal_matches_brute_force():
     occ = bvh_any_hit(bvh, o, d, 1e-4, limit)
     assert 0.1 < occ.float().mean() < 0.9
     assert torch.equal(occ, dense.time < limit)
-    assert (bvh_closest_hit.launches, bvh_any_hit.launches) == before
+    assert tracing.LAUNCHES == before
 
 
 @pytest.mark.cuda
@@ -417,9 +418,9 @@ def test_bvh_kernels_match_plain_on_card():
     active = torch.tensor(rng.random(n) > 0.1, device=dev)
     t_min = 1e-4
 
-    before = bvh_closest_hit.launches
+    before = tracing.LAUNCHES["bvh_closest_hit"]
     got = bvh_closest_hit(bvh, o, d, t_min, best, limit=limit.abs() * 2, active=active)
-    assert bvh_closest_hit.launches == before + 1
+    assert tracing.LAUNCHES["bvh_closest_hit"] == before + 1
     ref = bvh_closest_hit_plain(bvh, o, d, t_min, best, limit=limit.abs() * 2, active=active)
     same = got[1] == ref[1]
     assert same.float().mean() >= 0.999
@@ -430,9 +431,9 @@ def test_bvh_kernels_match_plain_on_card():
     for a, b in zip(got[2:], ref[2:]):
         torch.testing.assert_close(a[hit], b[hit], rtol=1e-6, atol=1e-6)
 
-    before = bvh_any_hit.launches
+    before = tracing.LAUNCHES["bvh_any_hit"]
     occ = bvh_any_hit(bvh, o, d, t_min, limit, active=active)
-    assert bvh_any_hit.launches == before + 1
+    assert tracing.LAUNCHES["bvh_any_hit"] == before + 1
     occ_ref = bvh_any_hit_plain(bvh, o, d, t_min, limit, active=active)
     assert 0.1 < occ_ref.float().mean() < 0.9
     assert (occ == occ_ref).float().mean() >= 0.999
@@ -448,9 +449,9 @@ def test_bvh_kernels_match_plain_on_card():
     occ = bvh_any_hit(bvh, o, d, t_min, limit.abs(), active=sparse)
     occ_ref = bvh_any_hit_plain(bvh, o, d, t_min, limit.abs(), active=sparse)
     assert (occ == occ_ref).float().mean() >= 0.999 and not bool(occ[~sparse].any())
-    before = (bvh_closest_hit.launches, bvh_any_hit.launches)
+    before = tracing.LAUNCHES.copy()
     counts, live_share = traverse_counts(True, bvh, o, d, t_min, limit.abs(), active=sparse)
-    assert (bvh_closest_hit.launches, bvh_any_hit.launches) == before
+    assert tracing.LAUNCHES - before == {"traverse_counts": 1}
     assert bool((counts[~sparse] == 0).all()) and bool((counts[sparse, 0] > 0).all())
     assert 0.0 < live_share <= 1.0
 
@@ -479,9 +480,9 @@ def test_threefry_kernels_match_plain_on_card():
     column = keys[:49].reshape(49, 1, 2)
 
     def launched(wrapper, *args):
-        before = wrapper.launches
+        before = tracing.LAUNCHES[wrapper.__name__]
         out = wrapper(*args)
-        assert wrapper.launches == before + 1
+        assert tracing.LAUNCHES[wrapper.__name__] == before + 1
         return out
 
     for k, d in ((key, data), (key, 5), (keys, 2**32 + 7), (keys, data), (grid, 3),
@@ -496,9 +497,9 @@ def test_threefry_kernels_match_plain_on_card():
         for a, b in zip(launched(tf.threefry_uniform, k, count), tf.uniforms_plain(k, count)):
             assert a.is_contiguous() and torch.equal(a.view(torch.int32), b.view(torch.int32))
     assert torch.equal(launched(tf.threefry_bits, grid, 3), tf.random_bits_plain(grid, 3))
-    before = tf.threefry_fold.launches
+    before = tracing.LAUNCHES["threefry_fold"]
     assert tf.threefry_fold(keys[:0], 1).shape == (0, 2)
-    assert tf.threefry_fold.launches == before
+    assert tracing.LAUNCHES["threefry_fold"] == before
 
     # the draw form: each of its call forms
     D = tf.Draw
@@ -525,9 +526,9 @@ def test_threefry_kernels_match_plain_on_card():
                                                      b.contiguous().view(torch.int32))
         assert (out_keys is None) == (not key_out)
         assert not key_out or torch.equal(out_keys, ref_keys)
-    before = tf.threefry_draw.launches
+    before = tracing.LAUNCHES["threefry_draw"]
     assert tf.threefry_draw(keys[:0], None, (1,), camera)[0][0].shape == (0,)
-    assert tf.threefry_draw.launches == before
+    assert tracing.LAUNCHES["threefry_draw"] == before
 
 
 def _prim_scene(name):
@@ -594,9 +595,9 @@ def test_prim_kernels_match_plain_on_card(name, n):
     d2 = torch.where(half[:, None], bounce, ray.dir.to_array())
     ray = Ray(Vec3.from_array(o2), Vec3.from_array(d2))
 
-    before = ph.prim_closest_hit.launches
+    before = tracing.LAUNCHES["prim_closest_hit"]
     got = ph.prim_closest_hit(prims, ray, scene.t_min)
-    assert ph.prim_closest_hit.launches == before + 1
+    assert tracing.LAUNCHES["prim_closest_hit"] == before + 1
     ref = ph.prim_closest_hit_plain(prims, ray, scene.t_min)
     same = (torch.isfinite(got.time) == torch.isfinite(ref.time)) & (got.material == ref.material)
     assert float(same.float().mean()) >= 0.9999
@@ -609,9 +610,9 @@ def test_prim_kernels_match_plain_on_card(name, n):
 
     limit = torch.tensor(np.where(rng.random(n) < 0.1, -1.0, rng.uniform(0, 10, n)),
                          dtype=torch.float32, device=dev)
-    before = ph.prim_any_hit.launches
+    before = tracing.LAUNCHES["prim_any_hit"]
     occ = ph.prim_any_hit(prims, ray, scene.t_min, limit)
-    assert ph.prim_any_hit.launches == before + 1
+    assert tracing.LAUNCHES["prim_any_hit"] == before + 1
     occ_ref = ph.prim_any_hit_plain(prims, ray, scene.t_min, limit)
     assert 0.05 < float(occ_ref.float().mean()) < 0.95
     assert float((occ == occ_ref).float().mean()) >= 0.9999
@@ -627,7 +628,6 @@ def test_a_span_encloses_its_kernel_on_card():
     kernel start, kernel end to span end) in microseconds."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
-    from rpt_tpu_torch import tracing
     from rpt_tpu_torch.ops import prim_hit as ph
     from rpt_tpu_torch.ray import Ray
     from rpt_tpu_torch.vec import Vec3

@@ -19,6 +19,7 @@ from rpt_tpu.ops.sphere_sweep import pack_spheres_transposed as jax_pack
 from rpt_tpu.ops.sphere_sweep import sphere_sweep as jax_sphere_sweep
 from rpt_tpu.vec import Vec3 as JVec3
 from rpt_tpu.integrators.photon import _knn_radius_device as jax_knn_radius
+from rpt_tpu_torch import tracing
 from rpt_tpu_torch.accel.knn import (
     build_grid, knn_levels_plain, knn_plain, knn_query, knn_radius, knn_radius_plain,
 )
@@ -79,9 +80,9 @@ def test_plain_sweep_matches_pallas():
     assert (np.abs(ref).sum(1) > 0).mean() > 0.2  # rays do pierce spheres
 
     # the wrapper takes the plain version for CPU tensors, never the kernel
-    before = sphere_sweep.launches
+    before = tracing.LAUNCHES["sphere_sweep"]
     np.testing.assert_array_equal(sphere_sweep(*args, n_spheres=p, phase_const=phase).numpy(), got)
-    assert sphere_sweep.launches == before
+    assert tracing.LAUNCHES["sphere_sweep"] == before
 
 
 def test_plain_sweep_ragged_and_partial():
@@ -130,10 +131,10 @@ def test_morton_table_is_a_permutation_and_keeps_the_sum():
     assert (ref.abs().sum(1) > 0).float().mean() > 0.2
     np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-5, atol=1e-7 * float(ref.max()))
     # the wrapper takes a SphereTable on the CPU too, and launches nothing
-    before = sphere_sweep.launches
+    before = tracing.LAUNCHES["sphere_sweep"]
     np.testing.assert_array_equal(
         sphere_sweep(o, d, hit_t, table, *args, n_spheres=p, phase_const=0.1).numpy(), got.numpy())
-    assert sphere_sweep.launches == before
+    assert tracing.LAUNCHES["sphere_sweep"] == before
 
 
 def test_sqrt_threshold_decides_as_the_square_root():

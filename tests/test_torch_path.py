@@ -41,10 +41,11 @@ from rpt_tpu.ray import Ray as JRay
 from rpt_tpu.renderer import build_launch
 from rpt_tpu.vec import Vec3 as JVec3
 import rpt_tpu_torch as tr
-from rpt_tpu_torch import intersect as tint
 from rpt_tpu_torch import renderer as trenderer
-from rpt_tpu_torch.accel.bvh import build_bvh, pack_bvh
+from rpt_tpu_torch.accel.bvh import BVHTables, build_bvh, pack_bvh
 from rpt_tpu_torch.meshes import displaced_blob
+from rpt_tpu_torch.ops.bvh_traverse import _traverse
+from rpt_tpu_torch.ops.dense_tri_hit import DENSE_TRI_ROWS
 from rpt_tpu_torch.ray import Ray as TRay
 from rpt_tpu_torch.vec import Vec3 as TVec3
 
@@ -65,8 +66,8 @@ def blob_tables():
     v, n = mesh.vertices, mesh.normals
     nodes, leaves, shade, depth = pack_bvh(build_bvh(v.min(1), v.max(1)), v, n,
                                            np.zeros(len(v), np.int32))
-    tb = tint.BVHTables(torch.from_numpy(nodes), torch.from_numpy(leaves),
-                        torch.from_numpy(shade), depth)
+    tb = BVHTables(torch.from_numpy(nodes), torch.from_numpy(leaves), torch.from_numpy(shade),
+                   depth)
     jb = jint.BVHTables(jnp.asarray(nodes), jnp.asarray(leaves), jnp.asarray(shade), depth)
     return mesh, tb, jb
 
@@ -107,9 +108,8 @@ def test_plain_traverse_matches_jax(blob_tables, any_hit):
     jt = [np.asarray(a) for a in jint._traverse(jb, jray, t_min, jnp.asarray(limit),
                                                  jnp.asarray(inf), any_hit,
                                                  active=jnp.asarray(active))]
-    tt = [a.numpy() for a in tint._traverse(tb, tray, t_min, torch.tensor(limit),
-                                            torch.tensor(inf), any_hit,
-                                            active=torch.tensor(active))]
+    tt = [a.numpy() for a in _traverse(tb, tray, t_min, torch.tensor(limit), torch.tensor(inf),
+                                       any_hit, active=torch.tensor(active))]
     if any_hit:
         j_occ, t_occ = jt[0] < limit, tt[0] < limit
         assert 0.1 < j_occ.mean() < 0.9
@@ -162,7 +162,7 @@ def test_trace_surface_matches_jax(nee_mode):
     r = torch_dragon.renderer("cpu", size=size, spp=spp, scene=tscene)
     tc = r.compiled
     assert tc.nee_mode == jc.nee_mode == nee_mode
-    assert tc.n_tris == jc.n_tris and tc.tables["bvh"].leaves.shape[0] > tint.DENSE_TRI_ROWS
+    assert tc.n_tris == jc.n_tris and tc.tables["bvh"].leaves.shape[0] > DENSE_TRI_ROWS
     got, segments = trenderer._path_pass(tc, r.camera, size, size, tr.sampling.key(0), 0, spp,
                                          bounces)
     assert np.isfinite(got).all() and got.mean() > 0

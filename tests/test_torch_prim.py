@@ -1,13 +1,13 @@
-"""The analytic-primitive hit test of the port (K-prim's wrappers, its plain
-version and `prim_hit_flat_plain`, the kernel's arithmetic over the packed
-rows) against `rpt_tpu` and against each other, on the CPU:
+"""The analytic-primitive hit test of the port (K-prim's wrappers and its
+plain version, the per-type chain of `ops/prim_hit.py`) against `rpt_tpu`,
+on the CPU:
 
+- `pack_prims`' rows against the scene's per-type tables;
 - the port's `_prim_best`, `closest_hit` and `occluded` against the JAX
   package's on the fractal's first four levels (187 spheres and its
-  plane: the JAX side takes its `fori_loop` branch) and on
-  `monomial_glass`' scene (every prim type, a monomial among them);
-- `prim_hit_flat_plain` over `pack_prims`' rows bit for bit equal to the
-  per-type intersectors, ties between equal prims included;
+  plane: the JAX side takes its `fori_loop` branch), on
+  `monomial_glass`' scene (every prim type, a monomial among them) and on
+  ties between equal prims of every type;
 - the CPU dispatch, bad rows and the kernel's parameter struct.
 
     JAX_PLATFORMS=cpu python -m pytest tests/test_torch_prim.py -q
@@ -29,6 +29,7 @@ from rpt_tpu.ray import Ray as JRay
 from rpt_tpu.vec import Vec3 as JVec3
 import rpt_tpu_torch as tr
 from rpt_tpu_torch import intersect as tint
+from rpt_tpu_torch import tracing
 from rpt_tpu_torch.ops import _build
 from rpt_tpu_torch.ops import prim_hit as ph
 from rpt_tpu_torch.ray import Ray as TRay
@@ -195,78 +196,6 @@ def _bits(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous().view(torch.int32)
 
 
-def test_flat_plain_matches_per_type(scene):
-    """`prim_hit_flat_plain` over the packed rows equals the per-type chain
-    bit for bit: time, normal and material on every lane, and the
-    any-hit booleans. On the tie scene the first of two equal prims wins
-    each hit (its material)."""
-    name, _, tc, _, tray, limit = scene
-    rows = tc.prim_rows
-    flat = ph.prim_hit_flat_plain(rows, tray, tc.t_min)
-    ref = ph.prim_closest_hit_plain(rows, tray, tc.t_min)
-    assert torch.equal(_bits(flat.time), _bits(ref.time))
-    for a, b in zip((flat.normal.x, flat.normal.y, flat.normal.z),
-                    (ref.normal.x, ref.normal.y, ref.normal.z)):
-        assert torch.equal(_bits(a), _bits(b))
-    assert torch.equal(flat.material, ref.material)
-    limit_t = torch.tensor(limit)
-    assert torch.equal(ph.prim_hit_flat_plain(rows, tray, tc.t_min, limit_t),
-                       ph.prim_any_hit_plain(rows, tray, tc.t_min, limit_t))
-    hit = torch.isfinite(ref.time)
-    assert 0.3 < float(hit.float().mean()) < 1.0
-    if name == "ties":
-        first = {int(m) for m in tc.tables["spheres"].material[:1]}
-        assert set(ref.material[hit].tolist()) == first
-        # every type took part
-        kinds = torch.zeros(4, dtype=torch.bool)
-        for k, begin in enumerate((0, 2, 4, 6)):
-            won = ph.prim_hit_flat_plain(
-                ph.PrimRows(rows.rows[begin:begin + 2],
-                            tuple(2 if j == k else 0 for j in range(4)),
-                            {ph.KINDS[k]: tc.tables[ph.KINDS[k]]}), tray, tc.t_min)
-            kinds[k] = bool(torch.isfinite(won.time).any())
-            assert set(won.material[torch.isfinite(won.time)].tolist()) <= first
-        assert bool(kinds.all())
-
-
-def test_monomial_bound_is_the_batch_entry(monkeypatch):
-    """The monomials' feasibility bound is the best entering their batch
-    (the sphere's hit), not the running best inside it: each monomial of
-    `prim_hit_flat_plain` gets that bound, and the result equals the
-    per-type chain's bit for bit."""
-    scene = tr.Scene()
-    scene.add(tr.Object(tr.sphere().scale((0.3, 0.3, 0.3)).translate((0.0, 0.0, 0.0))))
-    for z in (0.0, 0.5):
-        scene.add(tr.Object(tr.monomial_surface(1.0, 4.0).translate((0.0, -0.5, z))))
-    tc = scene.compile("cpu")
-    rng = np.random.default_rng(4)
-    o = np.tile(np.float32([0.0, 2.0, -3.0]), (256, 1))
-    d = rng.uniform([-0.3, -0.6, 0.5], [0.3, -0.2, 1.0], (256, 3))
-    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
-    ray = TRay(TVec3.from_array(o), TVec3.from_array(d))
-    rows = tc.prim_rows
-    bounds, times = [], []
-    monomial_time = ph._monomial_time
-
-    def recorded(row, ray, t_min, entry):
-        bounds.append(entry)
-        times.append(monomial_time(row, ray, t_min, entry))
-        return times[-1]
-
-    monkeypatch.setattr(ph, "_monomial_time", recorded)
-    flat = ph.prim_hit_flat_plain(rows, ray, tc.t_min)
-    ref = ph.prim_closest_hit_plain(rows, ray, tc.t_min)
-    assert torch.equal(_bits(flat.time), _bits(ref.time))
-    assert torch.equal(flat.material, ref.material)
-    sphere_t = ph._sphere_time(list(rows.rows[0].unbind()), ray, tc.t_min)
-    assert len(bounds) == 2
-    assert all(torch.equal(b, sphere_t) for b in bounds)
-    # the running best after the first monomial is another bound on some
-    # lanes: the test tells the two apart
-    running = torch.minimum(sphere_t, times[0])
-    assert bool((running != sphere_t).any()) and bool(torch.isfinite(sphere_t).any())
-
-
 def test_cpu_dispatch_runs_the_plain_version():
     """Rays on the CPU take the per-type chain (the same bits) and launch
     nothing; rays on another device than the CPU or a card, and rows with a
@@ -279,7 +208,7 @@ def test_cpu_dispatch_runs_the_plain_version():
     d = rng.normal(size=(300, 3))
     d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
     ray = TRay(TVec3.from_array(o), TVec3.from_array(d))
-    before = (ph.prim_closest_hit.launches, ph.prim_any_hit.launches)
+    before = tracing.LAUNCHES.copy()
     got = ph.prim_closest_hit(rows, ray, tc.t_min)
     ref = ph.prim_closest_hit_plain(rows, ray, tc.t_min)
     assert torch.equal(_bits(got.time), _bits(ref.time)) and torch.equal(got.material,
@@ -289,7 +218,7 @@ def test_cpu_dispatch_runs_the_plain_version():
                        ph.prim_any_hit_plain(rows, ray, tc.t_min, limit))
     assert torch.equal(tint.prim_occluded(tc, tc.tables, ray, limit),
                        tint._prim_best(tc, tc.tables, ray, tc.t_min).time < limit)
-    assert (ph.prim_closest_hit.launches, ph.prim_any_hit.launches) == before
+    assert tracing.LAUNCHES == before
 
     meta = ph.PrimRows(rows.rows.to("meta"), rows.counts, rows.sets)
     meta_ray = TRay(ray.origin.map(lambda c: c.to("meta")), ray.dir.map(lambda c: c.to("meta")))
@@ -321,10 +250,9 @@ def test_scene_without_prims():
     assert tc.prim_rows.counts == (0, 0, 0, 0) and tc.prim_rows.rows.shape == (0, ph.ROW)
     ray = TRay(TVec3.from_array(np.zeros((5, 3), np.float32)),
                TVec3.from_array(np.tile(np.float32([0, 0, 1]), (5, 1))))
-    for fn in (ph.prim_hit_flat_plain, ph.prim_closest_hit):
-        hit = fn(tc.prim_rows, ray, tc.t_min)
-        assert bool(torch.isinf(hit.time).all()) and bool((hit.material == -1).all())
-    assert not bool(ph.prim_hit_flat_plain(tc.prim_rows, ray, tc.t_min, 1.0).any())
+    hit = ph.prim_closest_hit(tc.prim_rows, ray, tc.t_min)
+    assert bool(torch.isinf(hit.time).all()) and bool((hit.material == -1).all())
+    assert not bool(ph.prim_any_hit(tc.prim_rows, ray, tc.t_min, 1.0).any())
 
 
 def test_params_struct_matches_the_kernel():

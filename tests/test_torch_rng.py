@@ -28,6 +28,7 @@ import torch
 
 from rpt_tpu import sampling as js
 from rpt_tpu_torch import sampling as ts
+from rpt_tpu_torch import tracing
 from rpt_tpu_torch.ops import _build, threefry as tf
 
 N = 777  # no multiple of the kernel's 256-thread block
@@ -210,8 +211,7 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
         plain = getattr(tf, name)
         monkeypatch.setattr(tf, name, lambda *a, _p=plain, _n=name, **k: called.append(_n)
                             or _p(*a, **k))
-    wrappers = (tf.threefry_fold, tf.threefry_split, tf.threefry_uniform, tf.threefry_bits)
-    before = [w.launches for w in wrappers]
+    before = tracing.LAUNCHES.copy()
     ts.fold(keys, 3)
     ts.fold_in(ts.key(1), torch.arange(10))
     ts.keys_for(ts.key(1), 10)
@@ -222,7 +222,7 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
     # (uniforms_plain draws its words through random_bits_plain)
     assert called == ["fold_in_plain", "fold_in_plain", "keys_for_plain", "random_bits_plain",
                       *["uniforms_plain", "random_bits_plain"] * 3]
-    assert [w.launches for w in wrappers] == before
+    assert tracing.LAUNCHES == before
 
 
 def test_wrappers_reject_bad_inputs():
@@ -485,12 +485,12 @@ def test_draw_on_the_cpu_takes_the_plain_version(monkeypatch):
     called = []
     real = tf.draw_plain
     monkeypatch.setattr(tf, "draw_plain", lambda *a, **k: called.append(1) or real(*a, **k))
-    before = tf.threefry_draw.launches
+    before = tracing.LAUNCHES["threefry_draw"]
     path = ts.key_path(ts.key(1), torch.arange(50)).fold(2)
     ts.draw(path, *CAMERA)
     path.keys()
     ts.uniform(path.fold(3))
-    assert len(called) == 3 and tf.threefry_draw.launches == before
+    assert len(called) == 3 and tracing.LAUNCHES["threefry_draw"] == before
     empty = ts.key_path(torch.zeros((0, 2), dtype=torch.int64)).fold(1)
     assert [u.shape for u in ts.draw(empty, D((), 2))] == [(0,), (0,)]
     assert empty.keys().shape == (0, 2)

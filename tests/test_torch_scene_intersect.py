@@ -17,6 +17,7 @@ from rpt_tpu.ray import Ray as JRay
 from rpt_tpu.vec import Vec3 as JVec3
 import rpt_tpu_torch as tr
 from rpt_tpu_torch import intersect as tint
+from rpt_tpu_torch.ops import dense_tri_hit as kd
 from rpt_tpu_torch.ray import Ray as TRay
 from rpt_tpu_torch.vec import Vec3 as TVec3
 
@@ -125,7 +126,7 @@ def test_dense_mesh_limit_raises():
         scene.add(pkg.Object(pkg.sphere().scale((0.4, 0.4, 0.4)).translate((0.0, 1.2, 0.0))))
         compiled.append(scene.compile() if pkg is jr else scene.compile("cpu"))
     jc, tc = compiled
-    assert tc.tables["bvh"].leaves.shape[0] > tint.DENSE_TRI_ROWS
+    assert tc.tables["bvh"].leaves.shape[0] > kd.DENSE_TRI_ROWS
     o = rng.uniform(-2, 2, (2048, 3)).astype(np.float32)
     d = rng.uniform(-0.8, 0.8, (2048, 3)) - o  # aimed into the soup
     d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
@@ -202,7 +203,7 @@ def test_on_plane_guard_matches_oracle(monkeypatch):
     assert 0.05 < occ_oracle.mean() < 0.95  # the sphere blocks some pairs
     assert (occ_oracle == occ_port).mean() >= 0.999
 
-    monkeypatch.setattr(tint, "_origin_on_plane", lambda num, pn, v1, o: torch.zeros_like(num, dtype=torch.bool))
+    monkeypatch.setattr(kd, "_origin_on_plane", lambda num, pn, v1, o: torch.zeros_like(num, dtype=torch.bool))
     _, occ_unguarded = _visibility_oracle_vs_port(tc, o_scene)
     assert (occ_oracle == occ_unguarded).mean() < 0.95
 

@@ -18,6 +18,7 @@ a GPU machine without JAX (`tests/conftest.py` imports jax, hence
 
 import ctypes
 import dataclasses
+import inspect
 import math
 import os
 import re
@@ -170,11 +171,11 @@ def test_cpu_scene_and_bare_medium_take_the_plain_chain(monkeypatch, medium):
                         lambda *a, **k: levels.append(a[4]) or real(*a, **k))
     scene = _lampshade_scene("cpu", _bare_medium() if medium == "bare" else "iso")
     li, _ = tph._find_object_light(scene)
-    before = ks.shoot_level.launches
+    before = tracing.LAUNCHES["shoot_level"]
     s_rows, v_rows, dropped = tph._shoot_launch(scene, scene.tables, li, 1.0, 48, 300,
                                                 sampling.key(5))
     assert levels == list(range(len(levels))) and len(levels) >= 2
-    assert ks.shoot_level.launches == before
+    assert tracing.LAUNCHES["shoot_level"] == before
     assert s_rows.shape[1] == v_rows.shape[1] == tph.PHOTON_ROW and v_rows.shape[0] > 0
     assert dropped == 0
 
@@ -281,7 +282,7 @@ def test_wrappers_refuse_what_they_do_not_take(monkeypatch):
 def test_params_match_the_kernel():
     """`_ShootParams` has the layout that `csrc/photon_shoot.cu` pins with
     its static_asserts, the entry point takes it by reference, its block
-    size is the wrapper's, and the wrapper's counter is a span counter."""
+    size is the wrapper's, and the wrapper launches under its own name."""
     with open(os.path.join(_build.CSRC_DIR, "photon_shoot.cu")) as f:
         src = f.read()
     pinned = dict(re.findall(r"offsetof\(ShootParams, (\w+)\) == (\d+)", src))
@@ -295,7 +296,7 @@ def test_params_match_the_kernel():
     assert re.search(r'extern "C" int rpt_photon_shoot_level\(const ShootParams\* params, '
                      r'void\* stream\)', src)
     assert _build._SIGNATURES["rpt_photon_shoot_level"] == [ctypes.c_void_p, ctypes.c_void_p]
-    assert ("rpt_tpu_torch.ops.photon_shoot", "shoot_level") in tracing.COUNTERS
+    assert '_build.launch("shoot_level", "rpt_photon_shoot_level", ' in inspect.getsource(ks)
     assert '#include "threefry.cuh"' in src
 
 
@@ -501,19 +502,19 @@ def test_shoot_launch_takes_the_kernel_on_the_card():
     li, _ = tph._find_object_light(scene)
     key = sampling.key(84, dev)
     tracing.clear()
-    before = ks.shoot_level.launches
+    before = tracing.LAUNCHES["shoot_level"]
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
         s_rows, v_rows, dropped = tph._shoot_launch(scene, scene.tables, li, 1e-5, 48, 100_000,
                                                     key)
     levels = [s for s in tracing.spans() if s.name == "photon.shoot_level"]
     assert levels and all(s.launches.get("shoot_level") == 1 for s in levels)
-    assert ks.shoot_level.launches - before == len(levels)
+    assert tracing.LAUNCHES["shoot_level"] - before == len(levels)
     _, s_ref, v_ref, d_ref = _compare_chunk(scene, 100_000, key, power=1e-5)
     _expect_equal("surface rows", s_rows, s_ref)
     _expect_equal("volume rows", v_rows, v_ref)
     assert dropped == d_ref
     bare = _lampshade_scene(dev, _bare_medium())
-    before = ks.shoot_level.launches
+    before = tracing.LAUNCHES["shoot_level"]
     with pytest.raises(ValueError, match="no preset"):
         tph._shoot_launch(bare, bare.tables, li, 1e-5, 48, 1_000, key)
-    assert ks.shoot_level.launches == before
+    assert tracing.LAUNCHES["shoot_level"] == before

@@ -4,11 +4,12 @@ keeps nothing; under `torch.profiler` a volumetric pass and a point-beam
 render give the span trees the benchmark's readers and `Renderer.profile`
 rely on (one root a call and its request id, live lanes level by level,
 the photon phase spans around `phase_seconds`' readings), launch deltas
-are the wrappers' counters' differences, the image is bit-identical with
+are the differences of the launch table, the image is bit-identical with
 recording on and off, and `Renderer.profile` writes the spans of a pass
 and of a photon render into its Chrome trace on the profiler's time
 base."""
 
+import collections
 import itertools
 import json
 import os
@@ -22,8 +23,6 @@ import torch
 
 import rpt_tpu_torch as tr
 from rpt_tpu_torch import tracing
-from rpt_tpu_torch.accel import knn
-from rpt_tpu_torch.ops import prim_hit, threefry
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "examples"))
 
@@ -88,6 +87,13 @@ def test_nothing_is_recorded_without_a_profiler():
     assert tracing.span("sample") is tracing.span("path.level", 7) is tracing._OFF
 
 
+class _Unreadable:
+    """A launch table whose every read fails."""
+
+    def __getattr__(self, name):
+        raise AssertionError("read with recording off")
+
+
 def test_the_off_path_reads_no_clock_and_keeps_nothing(monkeypatch):
     def forbidden(*args):
         raise AssertionError("read with recording off")
@@ -103,7 +109,7 @@ def test_the_off_path_reads_no_clock_and_keeps_nothing(monkeypatch):
     enter_and_leave(1)
     for name in ("time_ns", "perf_counter", "monotonic_ns"):
         monkeypatch.setattr(time, name, forbidden)
-    monkeypatch.setattr(tracing, "_counts", forbidden)
+    monkeypatch.setattr(tracing, "LAUNCHES", _Unreadable())
     monkeypatch.setattr(torch.cuda, "synchronize", forbidden)
     tracemalloc.start()
     try:
@@ -175,17 +181,17 @@ def test_a_point_beam_render_gives_the_shoot_build_and_trace_subtrees():
 
 
 def test_launch_deltas_are_the_wrappers_counters_differences(monkeypatch):
-    for fn in (threefry.threefry_draw, threefry.threefry_fold, prim_hit.prim_closest_hit,
-               knn.knn_query):  # each counter back where it was after the test
-        monkeypatch.setattr(fn, "launches", fn.launches)
-    threefry.threefry_draw.launches = 40
+    # the process's table back as it was after the test
+    monkeypatch.setattr(tracing, "LAUNCHES", collections.Counter(threefry_draw=40))
     with _profiled():
         with tracing.span("outer"):
-            threefry.threefry_draw.launches += 3
+            for _ in range(3):
+                tracing.count("threefry_draw")
             with tracing.span("inner"):
-                prim_hit.prim_closest_hit.launches += 1
-                knn.knn_query.launches += 2
-            threefry.threefry_fold.launches += 1
+                tracing.count("prim_closest_hit")
+                tracing.count("knn_query")
+                tracing.count("knn_query")
+            tracing.count("threefry_fold")
         with tracing.span("quiet"):
             pass
     inner, outer, quiet = tracing.spans()
@@ -193,7 +199,7 @@ def test_launch_deltas_are_the_wrappers_counters_differences(monkeypatch):
     assert outer.launches == {"threefry_draw": 3, "prim_closest_hit": 1, "knn_query": 2,
                               "threefry_fold": 1}
     assert quiet.launches == {} and inner.parent == outer.id and quiet.parent is None
-    assert threefry.threefry_draw.launches == 43
+    assert tracing.LAUNCHES["threefry_draw"] == 43
 
 
 def test_the_spans_stop_at_the_cap(monkeypatch):

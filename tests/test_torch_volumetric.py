@@ -40,7 +40,7 @@ from rpt_tpu.meshes import displaced_blob as jax_displaced_blob
 from rpt_tpu.ray import Ray as JRay
 from rpt_tpu.vec import Vec3 as JVec3
 import rpt_tpu_torch as tr
-from rpt_tpu_torch import intersect as tint
+from rpt_tpu_torch.ops.dense_tri_hit import DENSE_TRI_ROWS
 from rpt_tpu_torch import sampling as ts
 from rpt_tpu_torch.integrators import path as tpath
 from rpt_tpu_torch.ray import Ray as TRay
@@ -124,7 +124,7 @@ def _foggy_mesh_pair(medium):
     ts_ = torch_dragon.build_scene(*mesh)
     ts_.add(medium(tr))
     jc, tc = js_.compile(), ts_.compile("cpu")
-    assert tc.n_tris == jc.n_tris and tc.tables["bvh"].leaves.shape[0] > tint.DENSE_TRI_ROWS
+    assert tc.n_tris == jc.n_tris and tc.tables["bvh"].leaves.shape[0] > DENSE_TRI_ROWS
     return jc, tc
 
 
