@@ -50,7 +50,13 @@ per source, in parallel) and drives every ported path end to end:
   at its full size: two K-knn gathers at k = 50 a wavefront, over the
   surface photons and at the sampled collision over the volume photons,
   both held against brute force on sample 0's queries; the pixels through
-  the ceiling's opening lit;
+  the ceiling's opening lit; then `[K-estimate]` (`csrc/photon_estimate.cu`,
+  the estimates around the gathers): the skybox's first 16,384-lane
+  wavefront (the point query, k = 50 / 50) and the point-beam lampshade's
+  (the surface estimate, k = 20) through the kernel and the chain
+  (`point_plain`, `surface_plain`), bit for bit, timed beside it and its
+  bound; every path that estimates from a photon map on the card must
+  launch it (prep and finish once an estimate);
 - the beam x beam kind at its example's parameters; its beam estimate is
   torch ops, timed and held against a beam-by-beam float64 reference on
   256 lanes, and the sphere sweep of a medium whose phase depends on the
@@ -285,6 +291,7 @@ def phase_render(spp_cap):
     prims = _read_prim("render")
     dense = _read_dense("render", required=True)
     shoot = _read_shoot("render", required=True)
+    estimate = _read_estimate("render", required=True)
     s, c = r.phase_seconds, r.photon_counts
     finite = bool(np.isfinite(r._last_buffer.raw()).all())
     note = "" if spp == ex.sample else f" (spp lowered from {ex.sample} to {spp})"
@@ -292,7 +299,7 @@ def phase_render(spp_cap):
           f"{s['shoot']:.3f} s, build {s['build']:.3f} s, trace {s['trace']:.3f} s; "
           f"surface {c['surface']}, volume {c['volume']}, dropped {c['dropped']}; "
           f"image mean {img.mean():.4f}, finite {finite}; launches {launches}, K-rng {rng}, "
-          f"K-prim {prims}, K-dense {dense}, K-shoot {shoot}")
+          f"K-prim {prims}, K-dense {dense}, K-shoot {shoot}, K-estimate {estimate}")
     if not finite or img.shape != (r.height_, r.width_, 3) or img.mean() <= 0:
         raise RuntimeError("render output is not a finite, non-black image of the right shape")
     for name, n in launches.items():
@@ -1360,24 +1367,51 @@ def _read_shoot(path: str, required: bool = False) -> dict:
     return counts
 
 
-def _read_counts(path: str, shoots: bool = False) -> dict:
-    """The launches of K-knn, K-sweep, K1, K2, K-prim, K-dense and K-shoot
-    since `_zero_counts`; K-rng's are recorded for ``path`` by `_read_rng`,
-    K-prim's also by `_read_prim`, K-dense's by `_read_dense`, K-shoot's by
-    `_read_shoot` (required where ``shoots``)."""
+# K-estimate's entry points (the photon map's estimates at the camera's
+# hits), and their launches on every path that made any, by path
+# (`_read_estimate`)
+K_ESTIMATE = ("estimate_prep", "estimate_pairs", "estimate_finish")
+ESTIMATE_LAUNCHES: dict = {}
+
+
+def _read_estimate(path: str, required: bool = False) -> dict:
+    """Record K-estimate's launches of ``path`` since `_zero_counts` where
+    it made any (adding to what an earlier run of the same path recorded);
+    with ``required`` (a path that estimates from a photon map on the
+    card), fail where prep or finish never launched, or where they did not
+    launch as often: every estimate on the card takes K-estimate."""
+    counts = {name: _launched(name) for name in K_ESTIMATE}
+    if required and (counts["estimate_prep"] <= 0
+                     or counts["estimate_prep"] != counts["estimate_finish"]):
+        raise RuntimeError(f"the {path} path estimated from a photon map but did not take "
+                           f"K-estimate: {counts}")
+    if any(counts.values()):
+        seen = ESTIMATE_LAUNCHES.setdefault(path, dict.fromkeys(K_ESTIMATE, 0))
+        for name, n in counts.items():
+            seen[name] += n
+    return counts
+
+
+def _read_counts(path: str, shoots: bool = False, estimates: bool = False) -> dict:
+    """The launches of K-knn, K-sweep, K1, K2, K-prim, K-dense, K-shoot and
+    K-estimate since `_zero_counts`; K-rng's are recorded for ``path`` by
+    `_read_rng`, K-prim's also by `_read_prim`, K-dense's by `_read_dense`,
+    K-shoot's by `_read_shoot` (required where ``shoots``), K-estimate's by
+    `_read_estimate` (required where ``estimates``)."""
     _read_rng(path, shoots)
     return {**{name: _launched(name) for name in ("knn_query", "knn_radius", "sphere_sweep",
                                                   "bvh_closest_hit", "bvh_any_hit")},
             "knn_query_by_k": dict(KNN_BY_K),
-            **_read_dense(path), **_read_prim(path), **_read_shoot(path, shoots)}
+            **_read_dense(path), **_read_prim(path), **_read_shoot(path, shoots),
+            **_read_estimate(path, estimates)}
 
 
 def _other_launches(launches: dict, allowed=()) -> dict:
     """The launches of ``launches`` by kernels other than K-prim, K-dense
-    (a scene's small meshes), K-shoot (a photon shoot's levels) and
-    ``allowed`` that were made."""
+    (a scene's small meshes), K-shoot (a photon shoot's levels), K-estimate
+    (a photon map's estimates) and ``allowed`` that were made."""
     return {name: n for name, n in launches.items()
-            if n and name not in (*K_PRIM, *K_DENSE, "shoot_level", *allowed)}
+            if n and name not in (*K_PRIM, *K_DENSE, "shoot_level", *K_ESTIMATE, *allowed)}
 
 
 def _check_image(label, r, img):
@@ -1520,7 +1554,7 @@ def phase_photonmap(spp_cap):
     r = ex.renderer("cuda", sample=spp, seed=0)
     _zero_counts()
     img = r.photon_map_render(ex.photons)
-    launches = _read_counts("photonmap", shoots=True)
+    launches = _read_counts("photonmap", shoots=True, estimates=True)
     s, c = r.phase_seconds, r.photon_counts
     finite = _check_image("photon-map render", r, img)
     note = "" if spp == ex.sample else f" (spp lowered from {ex.sample} to {spp})"
@@ -1568,7 +1602,7 @@ def phase_photonmap_default(spp_cap):
     r = ex.renderer("cuda", sample=spp)
     _zero_counts()
     img = r.photon_map_render(ex.photons)
-    launches = _read_counts("photonmap-default", shoots=True)
+    launches = _read_counts("photonmap-default", shoots=True, estimates=True)
     s, c = r.phase_seconds, r.photon_counts
     finite = _check_image("photon_map.py render", r, img)
     raw = r._last_buffer.raw()
@@ -1622,14 +1656,15 @@ def phase_skybox_photons(spp_cap):
     triangles fill 3 leaf rows, under `ops.dense_tri_hit.DENSE_TRI_ROWS`, so they
     take K-dense and launch no K1/K2. Then both gathers on sample
     0's wavefronts, captured from its camera pass, against brute force.
-    Returns ``(volume numbers, surface numbers, launches a gather)``."""
+    Returns ``(volume numbers, surface numbers, launches a gather, the
+    renderer)``."""
     import torch_skybox_photons as ex
 
     spp = _cut(ex.SPP, spp_cap)
     r = ex.renderer("cuda", sample=spp)
     _zero_counts()
     img = r.photon_map_render(ex.PHOTONS)
-    launches = _read_counts("skybox-photons", shoots=True)
+    launches = _read_counts("skybox-photons", shoots=True, estimates=True)
     s, c = r.phase_seconds, r.photon_counts
     finite = _check_image("[skybox-photons]", r, img)
     raw = r._last_buffer.raw().mean(axis=2)
@@ -1665,7 +1700,7 @@ def phase_skybox_photons(spp_cap):
     surf = _gather_case(f"[skybox-photons] K-knn surface gather, sample 0 ({_misses(surface)} "
                         f"misses at the origin)", pmap.surface_grid, [q for q, _ in surface], 50,
                         _in_pass_ms(surface))
-    return vol, surf, wavefronts
+    return vol, surf, wavefronts, r
 
 
 # What `[sharded]` holds the sharded passes to against the single-process
@@ -1777,7 +1812,7 @@ def phase_sharded(r_dragon, r_lamp):
                                                  r.gather_size_, r.gather_size_volume_, mesh,
                                                  camera_key)
             wall = time.perf_counter() - t0
-            lamp = _read_counts("sharded photon render")
+            lamp = _read_counts("sharded photon render", estimates=True)
             t0 = time.perf_counter()
             ref = _photon_pass(scene, r.camera, r.width_, r.height_, pmap, camera_key,
                                r.num_samples_, r.gather_size_, r.gather_size_volume_, True)
@@ -1888,7 +1923,7 @@ def phase_beambeam(spp_cap):
     r = ex.renderer("cuda", sample=spp, seed=0)
     _zero_counts()
     img = r.photon_beam_query_beam_render(ex.photons)
-    launches = _read_counts("beambeam", shoots=True)
+    launches = _read_counts("beambeam", shoots=True, estimates=True)
     s, c = r.phase_seconds, r.photon_counts
     finite = _check_image("beam-beam render", r, img)
     beams = r.photon_map.beams
@@ -2798,6 +2833,118 @@ def phase_shoot():
             "launches": sky, "beam_launches": beam, "launches_by_path": dict(SHOOT_LAUNCHES)}
 
 
+# K-estimate's bytes, counted from `csrc/photon_estimate.cu`: a lane's ray,
+# hit time and key row with its data word in and its queries and flight
+# out (prep), its direction, hit, flight and material in and its colour
+# out (finish); a pair of the surface gather's answer and its photon's
+# position in and its recheck ray out (pairs); an answer of the branch a
+# lane takes, its distance, index, photon direction and power and its
+# recheck's answer (finish).
+ESTIMATE_LANE_BYTES, ESTIMATE_PAIR_BYTES, ESTIMATE_ANSWER_BYTES = 128, 52, 37
+
+
+def _kernel_ms(fn, names, reps: int = 5) -> dict:
+    """Mean device milliseconds a call of ``fn`` of each kernel whose name
+    holds one of ``names``, from `torch.profiler` (CUDA activity), over
+    ``reps`` calls after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    total = dict.fromkeys(names, 0.0)
+    for e in prof.profiler.kineto_results.events():
+        for name in names:
+            if e.device_type() == cuda and name in e.name():
+                total[name] += e.duration_ns() / 1e6
+    return {name: t / reps for name, t in total.items()}
+
+
+def _estimate_case(label: str, r, lanes: int, point: bool) -> dict:
+    """K-estimate on the first ``lanes`` lanes of sample 0's camera
+    wavefront of the photon render ``r`` (its map and gather sizes),
+    against the chain on the same tensors: the colour bit for bit; the
+    three kernels' device time (`_kernel_ms`), the whole estimate's wall
+    time (its gathers and recheck included) by the kernel and by the chain
+    (the host waits for the card after each), K-knn's device time inside,
+    and the bound of K-estimate's bytes."""
+    from rpt_tpu_torch import intersect, sampling
+    from rpt_tpu_torch.integrators import photon as ph
+    from rpt_tpu_torch.ops import photon_estimate as pe
+    from rpt_tpu_torch.ray import Ray
+
+    scene, pmap = r.compiled, r.photon_map
+    full, ekeys, _ = _sample0(r)
+    sl = slice(0, lanes)
+    ray, keys = Ray(full.origin[sl], full.dir[sl]), ekeys[sl]
+    hit = intersect.closest_hit(scene, scene.tables, ray)
+    k, kv = r.gather_size_, r.gather_size_volume_
+    common = (ph.knn_query, intersect.occluded)
+    if point:
+        medium = scene.media[0]
+        args = (scene, scene.tables, pmap, medium, ray, hit, keys, k, kv, True, *common)
+        kernel, chain = (lambda: pe.point(*args)), (lambda: pe.point_plain(*args))
+        d, _, _ = medium.sample_d(ray, sampling.key_path(keys).fold(pe.FLIGHT_TAG))
+        in_volume = ~hit.valid | (d < hit.time)
+    else:
+        args = (scene, scene.tables, pmap, ray, hit, k, True, *common)
+        kernel, chain = (lambda: pe.surface(*args)), (lambda: pe.surface_plain(*args))
+        in_volume = torch.zeros_like(hit.valid)
+    got, want = kernel().to_array(), chain().to_array()
+    equal = torch.equal(got, want)
+    chain()  # a warm-up: the chain's first call in a process loads its kernels
+    _, plain_ms = _events_ms(chain)
+    _, wall_ms = _events_ms(kernel)
+    times = _kernel_ms(kernel, (*(f"{n}_kernel" for n in K_ESTIMATE), "knn_query_kernel"))
+    ms = sum(times[f"{n}_kernel"] for n in K_ESTIMATE)
+    n_vol = int(in_volume.sum())
+    answers = n_vol * kv + int((hit.valid & ~in_volume).sum()) * k
+    n_bytes = (lanes * ESTIMATE_LANE_BYTES + lanes * k * ESTIMATE_PAIR_BYTES
+               + answers * ESTIMATE_ANSWER_BYTES)
+    bound_ms, bound_by = _bound(n_bytes, 0)
+    print(f"[K-estimate] {label}: {lanes} lanes ({n_vol} in the medium, "
+          f"{int((~hit.valid).sum())} missing), k = {k}{f' / {kv}' if point else ''}: "
+          f"bit-equal {equal}; kernels "
+          f"{ms:.4f} ms on the device ({', '.join(f'{n} {t:.4f}' for n, t in times.items())}), "
+          f"the estimate's wall {wall_ms:.3f} ms against the chain's {plain_ms:.3f} ms; bound "
+          f"{bound_ms:.5f} ms ({bound_by}: {n_bytes} bytes), {ms / bound_ms:.1f}x")
+    if not equal:
+        raise RuntimeError(f"K-estimate differs from the chain on {label}: "
+                           f"{int((got != want).any(dim=1).sum())} lanes")
+    return {"ms": ms, "wall_ms": wall_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "lanes": lanes, "knn_ms": times["knn_query_kernel"],
+            "kernels_ms": {n: times[f"{n}_kernel"] for n in K_ESTIMATE}}
+
+
+def phase_estimate(r_sky, r_beam):
+    """`[K-estimate]`: the point query of the skybox render (its first
+    16,384-lane wavefront, k = 50 / 50) and the surface estimate of the
+    point-beam lampshade render (its 16,384-lane wavefront, k = 20), each
+    through K-estimate and the chain (`_estimate_case`). Its launches a
+    render are those renders' own, as `_read_estimate` recorded them.
+    Returns the kernel report's entry."""
+    from rpt_tpu_torch.renderer import PIXEL_CHUNK
+
+    sky = _estimate_case("skybox wavefront", r_sky, PIXEL_CHUNK, point=True)
+    beam = _estimate_case("point-beam wavefront", r_beam,
+                          min(PIXEL_CHUNK, r_beam.width_ * r_beam.height_), point=False)
+    launches, beam_launches = (ESTIMATE_LAUNCHES[path]["estimate_finish"]
+                               for path in ("skybox-photons", "render"))
+    print(f"[K-estimate] calls a render: {launches} in the skybox render, {beam_launches} in the "
+          f"point-beam lampshade's; by path {ESTIMATE_LAUNCHES}")
+    return {"name": "photon_estimate", "route": "cuda",
+            "source": "rpt_tpu_torch/csrc/photon_estimate.cu",
+            "replaces": "rpt_tpu/integrators/photon.py:571", "max_abs_err": 0.0,
+            "library_ms": None,
+            **{key: sky[key] for key in ("ms", "wall_ms", "plain_ms", "bound_ms", "bound_by",
+                                         "lanes", "knn_ms", "kernels_ms")},
+            **_side("beam", beam), "beam_wall_ms": beam["wall_ms"], "beam_lanes": beam["lanes"],
+            "launches": launches, "beam_launches": beam_launches,
+            "launches_by_path": dict(ESTIMATE_LAUNCHES)}
+
+
 def main():
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU")
     parser.add_argument("--spp", type=int, default=None,
@@ -2866,7 +3013,9 @@ def main():
     kernels.append(_knn_entry(30, "photonmap", lampshade_by_k[30], lampshade[30]))
     # the volume gather at k = 50 is an entry of its own; the surface gather
     # of the same path rides as its side fields
-    sky_volume, sky_surface, sky_launches = phase_skybox_photons(args.spp)
+    sky_volume, sky_surface, sky_launches, r_sky = phase_skybox_photons(args.spp)
+    estimate = phase_estimate(r_sky, r)
+    del r_sky
     kernels.append({**_knn_entry(50, "skybox-photons", sky_launches,
                                  {**sky_volume, **_beside("surface", sky_surface)}),
                     "name": "knn_query_k50_volume", "surface_launches": sky_launches})
@@ -2894,10 +3043,12 @@ def main():
                  launches_by_path=by_path)
     kernels += dense
     kernels.append(shoot)
+    kernels.append(estimate)
     print(f"[K-rng] launches by path: {RNG_LAUNCHES}")
     print(f"[K-prim] launches by path: {PRIM_LAUNCHES}")
     print(f"[K-dense] launches by path: {DENSE_LAUNCHES}")
     print(f"[K-shoot] launches by path: {SHOOT_LAUNCHES}")
+    print(f"[K-estimate] launches by path: {ESTIMATE_LAUNCHES}")
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -20,7 +20,10 @@ point-photon x beam-query, beam x beam) — port of
   its deposit, with 1000x the power (beam-beam, photon.rs:773-793).
 * **Estimates** (photon.rs:316-628): surface disk estimate with the
   per-photon occlusion recheck (:353-361); the point-query sphere density
-  at a sampled collision (:384-437, K-knn over the volume grid); the
+  at a sampled collision (:384-437, K-knn over the volume grid), both
+  computed around their gathers by K-estimate on the card
+  (`rpt_tpu_torch.ops.photon_estimate`) and by its chain of torch ops on
+  the CPU; the
   beam-query sphere estimate (:439-501) through the K-sweep kernel
   (`rpt_tpu_torch.ops.sphere_sweep`) for constant-phase media and through
   a chunked pair sweep in torch ops for the others, as the JAX package
@@ -49,8 +52,7 @@ from ..accel.knn import PhotonGrid, build_grid, knn_query, knn_radius
 from ..dtypes import DTYPE, INF
 from ..intersect import closest_hit, occluded
 from ..lights import sample_shape
-from ..materials import bsdf
-from ..ops import photon_shoot
+from ..ops import photon_estimate, photon_shoot
 from ..ops.sphere_sweep import (
     SphereTable, build_sphere_table, pack_spheres_transposed, sphere_sweep,
     sphere_sweep_phase,
@@ -279,45 +281,13 @@ def _knn_radius_device(grid: PhotonGrid, k: int) -> torch.Tensor:
 def surface_estimate(scene, tables, pmap: PhotonMapData, ray: Ray, hit, gather_size: int,
                      occlusion_check: bool = True) -> Vec3:
     """Disk density estimate on surfaces (photon.rs:327-375), every
-    (lane, photon) pair in one wavefront."""
-    n = ray.origin.x.shape[0]
-    dev = ray.origin.x.device
-    zero = Vec3.zeros(n, dev)
-    if pmap.surface_grid.n == 0:
-        return zero
-    hitmask = hit.valid
-    pos = where(hitmask, ray.at(hit.time), zero)
-    wo = -ray.dir.normalize()
-    mat = tables["materials"].lookup(hit.material)
-
-    with tracing.span("photon.gather"):
-        idx, d2, valid = knn_query(pmap.surface_grid, pos.to_array().contiguous(), gather_size)
-    max_d2 = torch.where(valid, d2, 0.0).max(dim=1).values
-    rows = pmap.surface[idx.reshape(-1)]  # (n*k, ROW), lane-major
-    k = gather_size
-
-    def rep(a):
-        return a.expand(n).repeat_interleave(k)
-
-    p_pos = Vec3(rows[:, 0], rows[:, 1], rows[:, 2])
-    p_dir = Vec3(rows[:, 3], rows[:, 4], rows[:, 5])
-    p_pow = Vec3(rows[:, 6], rows[:, 7], rows[:, 8])
-    normal_f = hit.normal.map(rep)
-    ok = valid.reshape(-1) & rep(hitmask)
-    if occlusion_check:
-        disp = pos.map(rep) - p_pos
-        dist = disp.length()
-        sray = Ray(p_pos, disp / torch.clamp(dist, min=1e-20))
-        # dead lanes get limit -1: never occluded, never counted
-        limit = torch.where(ok, dist * (1.0 - scene.shadow_eps), -1.0)
-        with tracing.span("photon.occlusion"):
-            ok = ok & ~occluded(scene, tables, sray, limit)
-    f = bsdf(mat.repeat(k), normal_f, wo.map(rep), p_dir)
-    contrib = f * p_pow * torch.clamp(p_dir.dot(normal_f), 0.0, 1.0)
-    c = where(ok, contrib, Vec3.zeros(n * k, dev)).to_array().reshape(n, k, 3).sum(dim=1)
-    color = mat.color_query() * mat.emittance_query() + Vec3(c[:, 0], c[:, 1], c[:, 2])
-    inv = torch.where(max_d2 > 0.0, 1.0 / (math.pi * max_d2), 0.0)
-    return where(hitmask, color * inv, zero)
+    (lane, photon) pair in one wavefront: K-estimate on the card, the chain
+    of torch ops on the CPU (`ops/photon_estimate.py`), each around this
+    module's `knn_query` and `occluded`."""
+    estimate = (photon_estimate.surface if ray.origin.x.device.type == "cuda"
+                else photon_estimate.surface_plain)
+    return estimate(scene, tables, pmap, ray, hit, gather_size, occlusion_check, knn_query,
+                    occluded)
 
 
 def volume_estimate_point(scene, tables, pmap: PhotonMapData, medium, ray: Ray, hit, keys,
@@ -327,45 +297,14 @@ def volume_estimate_point(scene, tables, pmap: PhotonMapData, medium, ray: Ray, 
     sample; where it ends before the hit, the density of the
     ``gather_size_volume`` nearest volume photons in their sphere; else
     the surface estimate, attenuated and divided by the chance of getting
-    that far."""
-    n = ray.origin.x.shape[0]
-    dev = ray.origin.x.device
-    zero = Vec3.zeros(n, dev)
-    d, d_pdf, d_cdf = medium.sample_d(ray, sampling.key_path(keys).fold(0x7))
-    in_volume = ~hit.valid | (d < hit.time)
-
-    collision = where(in_volume, ray.at(d), zero)
-    wo = -ray.dir.normalize()
-    med_color = medium.color(collision)
-    ext = medium.extinction(collision)
-
-    if pmap.volume_grid is not None and pmap.volume_grid.n > 0:
-        kv = gather_size_volume
-        with tracing.span("photon.gather_volume"):
-            idx, d2, valid = knn_query(pmap.volume_grid, collision.to_array().contiguous(), kv)
-        max_d2 = torch.where(valid, d2, 0.0).max(dim=1).values
-        rows = pmap.volume[idx.reshape(-1)]  # (n*kv, ROW), lane-major
-
-        def rep(a):
-            return a.expand(n).repeat_interleave(kv)
-
-        p_dir = Vec3(rows[:, 3], rows[:, 4], rows[:, 5])
-        p_pow = Vec3(rows[:, 6], rows[:, 7], rows[:, 8])
-        ph = medium.phase(wo.map(rep), p_dir)
-        contrib = where(valid.reshape(-1), p_pow * med_color.map(rep) * ph,
-                        Vec3.zeros(n * kv, dev))
-        acc = contrib.to_array().reshape(n, kv, 3).sum(dim=1)
-        denom = (4.0 / 3.0) * math.pi * torch.clamp(max_d2, min=1e-30) ** 1.5
-        vol_color = Vec3(acc[:, 0], acc[:, 1], acc[:, 2]) / denom / ext
-        vol_color = vol_color * (medium.transmittence(ray, d) / torch.clamp(d_pdf, min=1e-30))
-        vol_color = where(max_d2 > 0.0, vol_color, zero)
-    else:
-        vol_color = zero
-
-    surf = surface_estimate(scene, tables, pmap, ray, hit, gather_size, occlusion_check)
-    surf_att = surf * (medium.transmittence(ray, torch.where(hit.valid, hit.time, 0.0))
-                       / torch.clamp(1.0 - d_cdf, min=1e-30))
-    return where(in_volume, vol_color, where(hit.valid, surf_att, zero))
+    that far. K-estimate on the card (a preset's medium; bare callables
+    are refused), the chain of torch ops on the CPU
+    (`ops/photon_estimate.py`), each around this module's `knn_query` and
+    `occluded`."""
+    estimate = (photon_estimate.point if ray.origin.x.device.type == "cuda"
+                else photon_estimate.point_plain)
+    return estimate(scene, tables, pmap, medium, ray, hit, keys, gather_size, gather_size_volume,
+                    occlusion_check, knn_query, occluded)
 
 
 def _k2(x):

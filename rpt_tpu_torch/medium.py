@@ -29,6 +29,7 @@ ISOTROPIC = 1  # homogeneous_isotropic
 GLOWING = 2  # colored_glowing_fog
 HENYEY_GREENSTEIN = 3  # henyey_greenstein
 GLOW_SPLIT_Y = 250.0  # colored_glowing_fog is red above this height, blue below
+SAMPLE_D_TAG = 0x5D  # sample_d's fold of its keys (the kernels fold it too)
 
 
 @dataclass(frozen=True)
@@ -77,7 +78,7 @@ class Medium:
     def sample_d(self, ray: Ray, keys):
         """Exponential free-flight sampling; returns (dist, pdf, cdf)
         (medium.rs:133-146)."""
-        u = sampling.uniform(sampling.fold(keys, 0x5D), 0.0, 1.0)
+        u = sampling.uniform(sampling.fold(keys, SAMPLE_D_TAG), 0.0, 1.0)
         ext = self.extinction(ray.origin)
         dist = -torch.log(torch.clamp(u, min=1e-38)) / ext
         transmittence = torch.exp(-ext * dist)

@@ -90,6 +90,10 @@ _SIGNATURES = {
     "rpt_dense_any_hit": [_P, _P],
     # params (a ShootParams by reference, launched by value), stream
     "rpt_photon_shoot_level": [_P, _P],
+    # params (an EstimateParams by reference, launched by value), stream
+    "rpt_estimate_prep": [_P, _P],
+    "rpt_estimate_pairs": [_P, _P],
+    "rpt_estimate_finish": [_P, _P],
 }
 
 
